@@ -8,15 +8,22 @@ Run from the repository root on a machine with one NVIDIA GPU (Hopper):
 Phases, one line each:
 
   (a) the card and the kernel build (``nvcc``, from ``memento_tpu_torch/csrc``);
-  (c) the main path through the public API at the published runtime scale:
+  (c) the 1D main path through the public API at the published runtime scale:
       200,000 cells x 1,024 genes, 2 conditions x 2 replicates,
       ``hyper_relative``, bootstrap resampling with GEV tail refinement,
       B = 1000, a 1.6x mean effect planted on 64 genes; then the same API on
       a small slice on the card and on the CPU (plain path) for agreement;
-  (b) each kernel against its plain PyTorch version on the main path's own
-      tile, at W = 1 and W = 2, B = 2000;
-  (d) each kernel's time and its plain version's at the main path's tile
-      shape, B = 1000 and B = 10000, beside the bound.
+  (e) the 2D main path (differential correlation) on the state (c) left:
+      512 unordered gene pairs over the genes that passed the filter, same
+      options, a correlation planted on 64 of the pairs in condition 1 only;
+      then the same API on the small slice on the card and on the CPU;
+  (f) ``get_corr_matrix`` for one group of 50,000 cells on the card, held
+      against the pair path's host float64 correlations, and against the CPU
+      on the small slice;
+  (b) the kernel against its plain PyTorch version on each main path's own
+      tile, B = 2000: W = 1 and W = 2 on the 1D tile, W = 5 on the 2D tile;
+  (d) the kernel's time and its plain version's at each main path's tile
+      shape (W = 2 and W = 5), B = 1000 and B = 10000, beside the bound.
 
 Then one JSON line of kernels, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -42,6 +49,9 @@ N_PLANTED = 64
 EFFECT = 1.6
 NUM_BOOT = 1000
 CAPTURE_Q = 0.1  # the noise model's capture efficiency (obs column)
+N_PAIRS = 512  # gene pairs of the 2D path
+N_PLANTED_PAIRS = 64  # of them, correlated in condition 1 only
+PLANT_MIN_MEAN = 0.5  # planted pairs take genes with at least this base mean
 # generator scale: bench.py thins its NB means by 0.1, which leaves most
 # genes under the 0.07 mean filter; at 1.0 about 92% of genes pass it
 SIM_SCALE = 1.0
@@ -70,13 +80,28 @@ def card_line() -> str:
         check=True, capture_output=True, text=True).stdout.strip()
 
 
-def simulate(rng, n_cells, n_genes):
+def simulate(rng, n_cells, n_genes, pair_rng):
     """bench.py's NB-style generator (gamma-Poisson, log-uniform base means)
-    with 2 conditions x 2 replicates in equal blocks and a planted mean
-    effect on the first genes of condition 1."""
+    with 2 conditions x 2 replicates in equal blocks, a planted mean effect
+    on the first genes of condition 1, and a planted correlation on
+    ``N_PLANTED_PAIRS`` disjoint gene pairs in condition 1.
+
+    The two genes of a planted pair share half of their Gamma(2) expression
+    factor (a common Gamma(1) term), so the factors correlate at 0.5 while
+    each gene keeps its marginal law.  The pairs take genes without a mean
+    effect, and their condition-1 counts are drawn from ``pair_rng`` after
+    the main stream has drawn the whole matrix: every other count is what
+    the generator gave before the pairs were planted.
+
+    Returns ``(X, obs, planted)``; ``planted`` is ``[N_PLANTED_PAIRS, 2]``
+    gene indices.
+    """
     import scipy.sparse as sparse
 
     base = np.exp(rng.uniform(np.log(0.05), np.log(3.0), n_genes))
+    eligible = np.nonzero((np.arange(n_genes) >= N_PLANTED)
+                          & (base >= PLANT_MIN_MEAN))[0]
+    planted = eligible[:2 * N_PLANTED_PAIRS].reshape(N_PLANTED_PAIRS, 2)
     per = n_cells // 4
     blocks, cond, rep = [], [], []
     for c in range(2):
@@ -87,8 +112,14 @@ def simulate(rng, n_cells, n_genes):
             for start in range(0, per, 20_000):
                 m = min(20_000, per - start)
                 lam = rng.gamma(2.0, means / 2.0, size=(m, n_genes))
-                blocks.append(sparse.csr_matrix(
-                    rng.poisson(lam * SIM_SCALE).astype(np.float32)))
+                counts = rng.poisson(lam * SIM_SCALE)
+                if c == 1:
+                    shared = pair_rng.gamma(1.0, 1.0, (m, N_PLANTED_PAIRS))
+                    factor = np.repeat(shared, 2, axis=1) + pair_rng.gamma(
+                        1.0, 1.0, (m, 2 * N_PLANTED_PAIRS))
+                    counts[:, planted.ravel()] = pair_rng.poisson(
+                        factor * means[planted.ravel()] / 2.0 * SIM_SCALE)
+                blocks.append(sparse.csr_matrix(counts.astype(np.float32)))
             cond += [c] * per
             rep += [r] * per
     X = sparse.vstack(blocks).tocsr()
@@ -97,12 +128,21 @@ def simulate(rng, n_cells, n_genes):
         "replicate": np.array(rep).astype(str),
         "capture_q": np.full(len(cond), CAPTURE_Q),
     }
-    return X, obs
+    return X, obs, planted
 
 
-def run_api(mtt, adata, device, num_boot, tile_size=None):
-    """The 1D main path through the public entry points; returns the result
-    table and the seconds of each entry point."""
+def draw_pairs(n_genes, n_pairs):
+    """Random gene pairs without self-pairs, drawn as bench.py draws those
+    of its 2D configuration."""
+    rng = np.random.default_rng(7)
+    idx1 = rng.integers(0, n_genes, n_pairs)
+    idx2 = (idx1 + 1 + rng.integers(0, n_genes - 1, n_pairs)) % n_genes
+    return idx1, idx2
+
+
+def timed_calls():
+    """``(timed, secs)``: ``timed(name, fn, ...)`` calls ``fn`` between two
+    device synchronisations and files its seconds under ``name``."""
     import torch
 
     secs = {}
@@ -115,19 +155,48 @@ def run_api(mtt, adata, device, num_boot, tile_size=None):
         secs[name] = round(time.perf_counter() - t0, 3)
         return out
 
-    timed("setup_memento", mtt.setup_memento, adata, q_column="capture_q")
-    timed("create_groups", mtt.create_groups, adata,
-          label_columns=["condition", "replicate"])
-    timed("compute_1d_moments", mtt.compute_1d_moments, adata)
+    return timed, secs
+
+
+def design(mtt, adata):
+    """Intercept covariate and condition treatment, one row per group."""
     groups = mtt.get_groups(adata)
     covariate = mtt.ColumnTable({"intercept": np.ones(len(groups))},
                                 index=groups.index)
     treatment = mtt.ColumnTable(
         {"stim": groups["condition"].astype(np.float64)}, index=groups.index)
+    return covariate, treatment
+
+
+def run_api(mtt, adata, device, num_boot, tile_size=None):
+    """The 1D main path through the public entry points; returns the result
+    table and the seconds of each entry point."""
+    timed, secs = timed_calls()
+    timed("setup_memento", mtt.setup_memento, adata, q_column="capture_q")
+    timed("create_groups", mtt.create_groups, adata,
+          label_columns=["condition", "replicate"])
+    timed("compute_1d_moments", mtt.compute_1d_moments, adata)
+    covariate, treatment = design(mtt, adata)
     timed("ht_1d_moments", mtt.ht_1d_moments, adata, covariate=covariate,
           treatment=treatment, num_boot=num_boot, resampling="bootstrap",
           approx=False, tile_size=tile_size, verbose=0, device=device)
     result = timed("get_1d_ht_result", mtt.get_1d_ht_result, adata)
+    return result, secs
+
+
+def run_api_2d(mtt, adata, device, idx1, idx2, num_boot):
+    """The 2D main path through the public entry points, on an ``adata``
+    the 1D path has been through; returns the result table and the seconds
+    of each entry point."""
+    names = np.asarray(adata.var.index)
+    timed, secs = timed_calls()
+    timed("compute_2d_moments", mtt.compute_2d_moments, adata,
+          list(zip(names[idx1], names[idx2])))
+    covariate, treatment = design(mtt, adata)
+    timed("ht_2d_moments", mtt.ht_2d_moments, adata, covariate=covariate,
+          treatment=treatment, num_boot=num_boot, resampling="bootstrap",
+          approx=False, verbose=0, device=device)
+    result = timed("get_2d_ht_result", mtt.get_2d_ht_result, adata)
     return result, secs
 
 
@@ -166,6 +235,57 @@ def main_path_tile(adata, model):
     return (counts.reshape(r * tile, u),
             np.stack([a, d], -1).reshape(r * tile, u, 2).astype(np.float32),
             n_obs)
+
+
+def main_path_tile_2d(adata, model, idx1, idx2, device):
+    """The kernel inputs of the 2D main path's (single) tile, rebuilt from
+    the pipeline state as ht_2d_moments / run_ht_2d / ht_2d_tile build them
+    (unordered duplicates tested once, joint compression per group, one
+    padded U for the tile): counts ``[R*P, U]``, weights ``[R*P, U, 5]``,
+    n_obs ``[R*P]``, as tensors on ``device``."""
+    import torch
+
+    from memento_tpu_torch.inference.ht import (MAX_PAIR_TILE, _round_up,
+                                                default_tile_size)
+    from memento_tpu_torch.ops.bootstrap import pair_weights
+    from memento_tpu_torch.ops.compress import compress_pairs
+
+    seen, keep = set(), []
+    for i, pair in enumerate(zip(idx1.tolist(), idx2.tolist())):
+        if pair[0] != pair[1] and frozenset(pair) not in seen:
+            seen.add(frozenset(pair))
+            keep.append(i)
+    idx1, idx2 = idx1[keep], idx2[keep]
+    uns = adata.uns["memento"]
+    groups = uns["groups"]
+    tile = min(default_tile_size(len(groups), NUM_BOOT), MAX_PAIR_TILE,
+               _round_up(len(idx1), 64))
+    if tile < len(idx1):
+        raise AssertionError(
+            f"2D main path ran {-(-len(idx1) // tile)} tiles; expected 1")
+    comps = [compress_pairs(uns["group_cells"][grp],
+                            uns["approx_size_factor"][grp], idx1, idx2)
+             for grp in groups]
+    u = _round_up(max(c.padded_u for c in comps), 64)
+
+    def stack(field, fill=0.0):
+        out = np.full((len(comps), tile, u), fill, np.float32)
+        for r, c in enumerate(comps):
+            x = getattr(c, field)
+            out[r, :x.shape[0], :x.shape[1]] = x
+        return torch.as_tensor(out, device=device)
+
+    counts = stack("counts")
+    inv_sf = stack("inv_sf", 1.0)
+    q = torch.tensor([uns["group_q"][grp] for grp in groups],
+                     dtype=torch.float32, device=device)
+    weights = pair_weights(stack("values_1"), stack("values_2"), inv_sf,
+                           inv_sf * inv_sf,
+                           model.var_correction(q)[:, None, None])
+    n_obs = torch.tensor([c.n_obs for c in comps], dtype=torch.float32,
+                         device=device).repeat_interleave(tile)
+    return (counts.reshape(-1, u).contiguous(),
+            weights.reshape(-1, u, 5).contiguous(), n_obs)
 
 
 def cascade_work(counts: np.ndarray, w_dim: int, num_boot: int):
@@ -210,11 +330,20 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def check_distribution(k, p, n_rows, label):
-    """Weight-1 sums conserve N exactly in both versions; the other weights
-    agree in distribution: per row, mean within 0.15 sd and sd within 15%
-    of the plain version's."""
-    cons_tol = 1e-5 * n_rows.max()
+def conservation_limit(n_max: float, u_max: int) -> float:
+    """How far a float32 weight-1 sum may lie from N: both versions add up
+    to ``u_max`` draws into a running sum near N, each addition rounds by up
+    to half an ulp of N, and the roundings add as a random walk: 1e-5 N up
+    to some 800 bins, 3 eps sqrt(U) N beyond (the worst of millions of sums
+    stays under half of that).  A lost draw would show as a cell or more."""
+    eps = float(np.finfo(np.float32).eps)
+    return n_max * max(1e-5, 3.0 * eps * np.sqrt(u_max))
+
+
+def check_distribution(k, p, n_rows, cons_tol, label):
+    """Weight-1 sums conserve N in both versions (to ``cons_tol``, see
+    ``conservation_limit``); the other weights agree in distribution: per
+    row, mean within 0.15 sd and sd within 15% of the plain version's."""
     err = float(np.abs(k[:, 0, :] - p[:, 0, :]).max())
     for name, x in (("kernel", k), ("plain", p)):
         dev = float(np.abs(x[:, 0, :] - n_rows[:, None]).max())
@@ -271,10 +400,11 @@ def main() -> int:
     log(f"(a) card: {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | build {build_s:.2f} s | ptxas: {ptxas}")
 
-    # ---- (c) the main path ------------------------------------------------
+    # ---- (c) the 1D main path ---------------------------------------------
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
-    X, obs = simulate(rng, N_CELLS, N_GENES)
+    X, obs, planted_genes = simulate(
+        rng, N_CELLS, N_GENES, np.random.default_rng([args.seed, 2]))
     genes = np.array([f"G{i}" for i in range(N_GENES)])
     adata = mtt.AnnData(X, obs=obs, var=mtt.ColumnTable(index=genes))
     log(f"(c) data: {N_CELLS} cells x {N_GENES} genes, nnz {X.nnz}, "
@@ -283,11 +413,11 @@ def main() -> int:
     cuda_kernels.reset_launches()
     profiling.reset_timings()
     result, secs = run_api(mtt, adata, dev, NUM_BOOT)
-    launches = dict(cuda_kernels.LAUNCHES)
+    launches_1d = dict(cuda_kernels.LAUNCHES)
     phases = {name: round(v["total_s"], 3)
               for name, v in profiling.timings().items()}
-    if launches["cascade_bootstrap"] <= 0:
-        raise AssertionError(f"main path launched no kernel: {launches}")
+    if launches_1d["cascade_bootstrap"] <= 0:
+        raise AssertionError(f"main path launched no kernel: {launches_1d}")
 
     tested = result["gene"]
     gene_idx = np.array([int(x[1:]) for x in tested])
@@ -304,7 +434,7 @@ def main() -> int:
     planted_coef = float(np.nanmean(result["de_coef"][planted]))
     log(f"(c) main path: {len(tested)} genes tested ({planted.sum()} planted) | "
         f"seconds {json.dumps(secs)} | ht1d phases {json.dumps(phases)} | "
-        f"launches {json.dumps(launches)} | "
+        f"launches {json.dumps(launches_1d)} | "
         f"power {power:.3f} | planted mean coef {planted_coef:.3f} "
         f"(log 1.6 = 0.470) | null median p {null_median:.3f} | "
         f"null FP@0.05 {null_fp:.3f}")
@@ -320,12 +450,12 @@ def main() -> int:
     rows = np.concatenate([np.arange(b, b + 2000)
                            for b in range(0, N_CELLS, N_CELLS // 4)])
     cols = np.r_[0:32, N_PLANTED:N_PLANTED + 96]
-    small = {}
+    small, small_ad = {}, {}
     for where in ("cuda", "cpu"):
-        sub = mtt.AnnData(X[rows][:, cols],
-                          obs={k: v[rows] for k, v in obs.items()},
-                          var=mtt.ColumnTable(index=genes[cols]))
-        small[where], _ = run_api(mtt, sub, where, 500)
+        small_ad[where] = mtt.AnnData(
+            X[rows][:, cols], obs={k: v[rows] for k, v in obs.items()},
+            var=mtt.ColumnTable(index=genes[cols]))
+        small[where], _ = run_api(mtt, small_ad[where], where, 500)
     sg, sc = small["cuda"], small["cpu"]
     if list(sg["gene"]) != list(sc["gene"]):
         raise AssertionError("small-slice gene lists differ")
@@ -340,70 +470,203 @@ def main() -> int:
     if not 0.85 <= se_ratio <= 1.15 or p_diff > 0.05:
         raise AssertionError("small-slice SE / p-value disagreement")
 
-    # ---- (b) kernel against its plain version on the main path's tile -----
+    # ---- (e) the 2D main path ----------------------------------------------
+    # pairs over the genes that passed the filter; the first of them are
+    # the planted pairs (their genes all pass: base mean >= PLANT_MIN_MEAN)
+    position = {name: i for i, name in enumerate(adata.var.index)}
+    idx1, idx2 = draw_pairs(adata.n_vars, N_PAIRS)
+    idx1[:N_PLANTED_PAIRS] = [position[g] for g in genes[planted_genes[:, 0]]]
+    idx2[:N_PLANTED_PAIRS] = [position[g] for g in genes[planted_genes[:, 1]]]
+    planted_sets = {frozenset(pair) for pair in
+                    zip(idx1[:N_PLANTED_PAIRS], idx2[:N_PLANTED_PAIRS])}
+    planted2 = np.array([frozenset(pair) in planted_sets
+                         for pair in zip(idx1, idx2)])
+
+    cuda_kernels.reset_launches()
+    profiling.reset_timings()
+    result2, secs2 = run_api_2d(mtt, adata, dev, idx1, idx2, NUM_BOOT)
+    launches_2d = dict(cuda_kernels.LAUNCHES)
+    by_w = dict(cuda_kernels.LAUNCHES_BY_W)
+    phases2 = {name: round(v["total_s"], 3)
+               for name, v in profiling.timings().items()}
+    if by_w[5] <= 0 or by_w[5] != launches_2d["cascade_bootstrap"]:
+        raise AssertionError("the 2D main path must launch the kernel with "
+                             f"W = 5 and no other W: {by_w}")
+    if result2.shape != (N_PAIRS, 5):
+        raise AssertionError(f"unexpected 2D result shape {result2.shape}")
+    if not np.isfinite(result2["corr_coef"]).mean() > 0.95:
+        raise AssertionError("too many non-finite correlation coefficients")
+    dc_p = result2["corr_pval"]
+    power2 = float((dc_p[planted2] < 0.05).mean())
+    null_median2 = float(np.nanmedian(dc_p[~planted2]))
+    null_fp2 = float((dc_p[~planted2] < 0.05).mean())
+    planted_coef2 = float(np.nanmean(result2["corr_coef"][planted2]))
+    busy2 = phases2["ht2d.dispatch"] / secs2["ht_2d_moments"]
+    log(f"(e) 2D main path: {N_PAIRS} pairs tested ({planted2.sum()} planted) "
+        f"over {adata.n_vars} genes | seconds {json.dumps(secs2)} | ht2d "
+        f"phases {json.dumps(phases2)} | launches {json.dumps(launches_2d)} "
+        f"by W {json.dumps(by_w)} | device program share of ht_2d_moments "
+        f"{busy2:.3f} | power {power2:.3f} | planted mean coef "
+        f"{planted_coef2:.3f} | null median p {null_median2:.3f} | "
+        f"null FP@0.05 {null_fp2:.3f}")
+    if power2 < 0.8:
+        raise AssertionError(f"power on planted pairs {power2} < 0.8")
+    if not 0.3 <= null_median2 <= 0.7:
+        raise AssertionError(f"2D null median p {null_median2} outside "
+                             "[0.3, 0.7]")
+    if null_fp2 > 0.10:
+        raise AssertionError(f"2D null false-positive share {null_fp2} > 0.10")
+
+    # the same API on the small slice, on the card and on the CPU
+    s_idx1, s_idx2 = draw_pairs(small_ad["cuda"].n_vars, 48)
+    small2 = {where: run_api_2d(mtt, small_ad[where], where, s_idx1, s_idx2,
+                                500)[0] for where in ("cuda", "cpu")}
+    sg, sc = small2["cuda"], small2["cpu"]
+    np.testing.assert_allclose(sg["corr_coef"], sc["corr_coef"], rtol=1e-4,
+                               atol=1e-5, equal_nan=True, err_msg="corr_coef")
+    se_ratio2 = float(np.nanmedian(sg["corr_se"] / sc["corr_se"]))
+    p_diff2 = float(np.nanmedian(np.abs(sg["corr_pval"] - sc["corr_pval"])))
+    log(f"(e) small slice ({len(rows)} cells, {len(s_idx1)} pairs over "
+        f"{small_ad['cuda'].n_vars} genes) card vs CPU plain path: "
+        f"corr_coef agree (rtol 1e-4) | median SE ratio {se_ratio2:.3f} | "
+        f"median |dp| {p_diff2:.4f}")
+    if not 0.85 <= se_ratio2 <= 1.15 or p_diff2 > 0.05:
+        raise AssertionError("2D small-slice SE / p-value disagreement")
+
+    # ---- (f) the correlation matrix ----------------------------------------
+    uns = adata.uns["memento"]
+    group = uns["groups"][0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    corr_mat = mtt.get_corr_matrix(adata, group, device=dev)
+    torch.cuda.synchronize()
+    corr_s = time.perf_counter() - t0
+    pair_corr = uns["2d_moments"][group]["corr"]
+    at_pairs = corr_mat[idx1, idx2]
+    inside = np.isfinite(at_pairs) & (np.abs(pair_corr) < 1)
+    corr_err = float(np.abs(at_pairs[inside] - pair_corr[inside]).max())
+    small_mats = {where: mtt.get_corr_matrix(
+        small_ad[where], small_ad[where].uns["memento"]["groups"][0],
+        device=where) for where in ("cuda", "cpu")}
+    if not np.array_equal(np.isnan(small_mats["cuda"]),
+                          np.isnan(small_mats["cpu"])):
+        raise AssertionError("corr matrix NaN pattern differs, card vs CPU")
+    small_err = float(np.nanmax(np.abs(small_mats["cuda"]
+                                       - small_mats["cpu"])))
+    log(f"(f) get_corr_matrix: group {group} "
+        f"[{uns['group_cells'][group].shape[0]} cells x {adata.n_vars} genes] "
+        f"in {corr_s:.3f} s | {int(inside.sum())} of {N_PAIRS} pair entries "
+        f"held against the host float64 pair path: max |diff| {corr_err:.3g} "
+        f"(limit 1e-3) | small slice card vs CPU: NaN pattern equal, "
+        f"max |diff| {small_err:.3g} (limit 1e-4)")
+    if inside.sum() < 0.9 * N_PAIRS or corr_err > 1e-3 or small_err > 1e-4:
+        raise AssertionError("correlation matrix disagreement")
+
+    # ---- (b) kernel against its plain version on each main path's tile ----
     counts_np, weights_np, n_obs_np = main_path_tile(adata, HYPER_RELATIVE)
-    u_rows = (counts_np > 0).sum(1)
-    counts = torch.as_tensor(counts_np, device=dev)
-    n_rows = counts.sum(1)
-    if int(u_rows.max()) <= 256:
-        raise AssertionError(f"no row with U > 256 (max {u_rows.max()})")
-    max_err = 0.0
-    dist = {}
-    for w_dim in (1, 2):
-        weights = torch.as_tensor(weights_np, device=dev)[..., :w_dim].clone()
-        weights[..., 0] = 1.0  # weight 1: the resample's total
-        weights = weights.contiguous()
-        k = cuda_kernels.fused_bootstrap_sums_cuda(
-            counts, weights, n_rows, 2000, args.seed + 11)
-        p = sampling.fused_bootstrap_sums(counts, weights, n_rows, 2000,
-                                          args.seed + 12)
-        torch.cuda.synchronize()
-        err, wm, ws = check_distribution(k.cpu().numpy(), p.cpu().numpy(),
-                                         n_rows.cpu().numpy(), f"W={w_dim}")
-        max_err = max(max_err, err)
-        dist[w_dim] = (wm, ws)
-    log(f"(b) cascade_bootstrap vs plain on the main path tile "
-        f"[{counts_np.shape[0]} rows x {counts_np.shape[1]} bins, max occupied "
-        f"{int(u_rows.max())}], B=2000: conservation max |kernel - plain| "
-        f"{max_err:.4g} (limit {1e-5 * float(n_rows.max()):.3g}); "
-        f"W=2 mean dev {dist[2][0]:.3f} sd, sd ratio dev {dist[2][1]:.3f} "
-        f"(limits 0.15)")
+    tiles = {
+        2: (torch.as_tensor(counts_np, device=dev),
+            torch.as_tensor(weights_np, device=dev),
+            torch.as_tensor(n_obs_np, device=dev)),
+        5: main_path_tile_2d(adata, HYPER_RELATIVE, idx1, idx2, dev),
+    }
+    if int((counts_np > 0).sum(1).max()) <= 256:
+        raise AssertionError("no 1D row with U > 256")
+    max_err, shapes = {}, {}
+    for tile_w, check_w in ((2, (1, 2)), (5, (5,))):
+        counts, weights, _ = tiles[tile_w]
+        t_dim, u_dim = counts.shape
+        occupied = (counts > 0).sum(1)
+        small_bins = float(((counts > 0) & (counts < 8)).sum()
+                           / occupied.sum())
+        shapes[tile_w] = {"rows": t_dim, "bins": u_dim, "W": tile_w,
+                          "B": NUM_BOOT}
+        # the plain version holds a [rows, bins, 32] float32 table; take
+        # every k-th row if that would pass 8 GiB
+        step = -(-(t_dim * u_dim * 32 * 4) // (8 << 30))
+        counts_b = counts[::step].contiguous()
+        n_rows = counts_b.sum(1)
+        cons_tol = conservation_limit(float(n_rows.max()), int(occupied.max()))
+        max_err[tile_w], dist = 0.0, None
+        for w_dim in check_w:
+            w_b = weights[::step, :, :w_dim].clone()
+            w_b[..., 0] = 1.0  # weight 1: the resample's total
+            w_b = w_b.contiguous()
+            k = cuda_kernels.fused_bootstrap_sums_cuda(
+                counts_b, w_b, n_rows, 2000, args.seed + 11)
+            pl = sampling.fused_bootstrap_sums(counts_b, w_b, n_rows, 2000,
+                                               args.seed + 12)
+            torch.cuda.synchronize()
+            err, wm, ws = check_distribution(
+                k.cpu().numpy(), pl.cpu().numpy(), n_rows.cpu().numpy(),
+                cons_tol, f"W={w_dim}")
+            max_err[tile_w] = max(max_err[tile_w], err)
+            dist = (wm, ws)
+            del k, pl
+        log(f"(b) cascade_bootstrap vs plain on the "
+            f"{'1D' if tile_w == 2 else '2D'} main path tile [{t_dim} rows x "
+            f"{u_dim} bins, max occupied {int(occupied.max())}, mean occupied "
+            f"{float(occupied.float().mean()):.0f}, "
+            f"{small_bins:.3f} of occupied bins below 8; row step {step}], "
+            f"W in {check_w}, B=2000: conservation max "
+            f"|kernel - plain| {max_err[tile_w]:.4g} (limit "
+            f"{cons_tol:.3g}); W={check_w[-1]} mean dev "
+            f"{dist[0]:.3f} sd, sd ratio dev {dist[1]:.3f} (limits 0.15)")
 
-    # ---- (d) times at the main path's tile shape ---------------------------
-    weights = torch.as_tensor(weights_np, device=dev)
-    n_obs = torch.as_tensor(n_obs_np, device=dev)
+    # ---- (d) times at each main path's tile shape --------------------------
     timings = {}
-    for num_boot in (NUM_BOOT, 10_000):
-        ms = time_ms(lambda: cuda_kernels.fused_bootstrap_sums_cuda(
-            counts, weights, n_obs, num_boot, 7), reps=10)
-        plain_ms = time_ms(lambda: sampling.fused_bootstrap_sums(
-            counts, weights, n_obs, num_boot, 7), reps=2)
-        bound_ms, bound_by = bound(counts_np, 2, num_boot)
-        timings[num_boot] = (ms, plain_ms, bound_ms, bound_by)
-        log(f"(d) cascade_bootstrap B={num_boot} [{counts_np.shape[0]} x "
-            f"{counts_np.shape[1]}, W=2]: kernel {ms:.3f} ms | plain "
-            f"{plain_ms:.3f} ms | bound {bound_ms:.4f} ms ({bound_by}) | "
-            f"{card}")
+    for tile_w in (2, 5):
+        counts, weights, n_obs = tiles[tile_w]
+        counts_host = counts.cpu().numpy()
+        for num_boot in (NUM_BOOT, 10_000):
+            ms = time_ms(lambda: cuda_kernels.fused_bootstrap_sums_cuda(
+                counts, weights, n_obs, num_boot, 7), reps=10)
+            # the plain version is timed at B = 10000 only if three calls of
+            # it stay within a minute, judged from its time at B = 1000
+            plain_ms = None
+            if num_boot == NUM_BOOT or \
+                    3 * 10 * timings[tile_w, NUM_BOOT][1] < 60e3:
+                plain_ms = time_ms(lambda: sampling.fused_bootstrap_sums(
+                    counts, weights, n_obs, num_boot, 7), reps=2)
+            bound_ms, bound_by = bound(counts_host, tile_w, num_boot)
+            timings[tile_w, num_boot] = (ms, plain_ms, bound_ms, bound_by)
+            plain_txt = "not timed (over a minute)" if plain_ms is None \
+                else f"{plain_ms:.3f} ms"
+            log(f"(d) cascade_bootstrap B={num_boot} [{counts.shape[0]} x "
+                f"{counts.shape[1]}, W={tile_w}]: kernel {ms:.3f} ms | plain "
+                f"{plain_txt} | bound {bound_ms:.4f} ms ({bound_by}) | "
+                f"{card}")
 
-    ms, plain_ms, bound_ms, bound_by = timings[NUM_BOOT]
-    ms10, plain10, bound10, _ = timings[10_000]
-    kernels = [{
+    def numbers(tile_w, launches):
+        ms, plain_ms, bound_ms, bound_by = timings[tile_w, NUM_BOOT]
+        ms10, plain10, bound10, _ = timings[tile_w, 10_000]
+        return {
+            "launches": launches,
+            "max_abs_err": max_err[tile_w],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+            "shape": shapes[tile_w],
+            "B10000": {"ms": ms10, "plain_ms": plain10, "bound_ms": bound10},
+        }
+
+    # one kernel, two uses: the top-level numbers are those of the 1D path's
+    # tile (W = 2) with the launches of both main paths; "W5" holds the same
+    # keys for the 2D path's tile
+    kernel = {
         "name": "cascade_bootstrap",
         "route": "cuda",
         "source": "memento_tpu_torch/csrc/cascade_bootstrap.cu",
         "replaces": "memento_tpu/ops/pallas_kernels.py:53",
-        "launches": launches["cascade_bootstrap"],
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-        "shape": {"rows": int(counts_np.shape[0]),
-                  "bins": int(counts_np.shape[1]), "W": 2, "B": NUM_BOOT},
-        "B10000": {"ms": ms10, "plain_ms": plain10, "bound_ms": bound10},
-    }]
-    print(json.dumps({"kernels": kernels}))
+        **numbers(2, launches_1d["cascade_bootstrap"]
+                  + launches_2d["cascade_bootstrap"]),
+        "launches_by_path": {"1d": launches_1d["cascade_bootstrap"],
+                             "2d": launches_2d["cascade_bootstrap"]},
+        "W5": numbers(5, launches_2d["cascade_bootstrap"]),
+    }
+    print(json.dumps({"kernels": [kernel]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

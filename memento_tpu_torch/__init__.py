@@ -1,29 +1,37 @@
-"""memento_tpu_torch: the PyTorch/CUDA port of memento_tpu (1D slice).
+"""memento_tpu_torch: the PyTorch/CUDA port of memento_tpu.
 
-Method-of-moments estimation of mean and residual variance of scRNA-seq
-expression under a hypergeometric capture-noise model, with differential
-mean (DE) and differential variability (DV) tests by a unique-value-
-compressed multinomial bootstrap and weighted meta-regression.  The
-bootstrap runs in a hand-written CUDA kernel (``csrc/cascade_bootstrap.cu``)
-on an NVIDIA Hopper card; every other device stage is PyTorch.
+Method-of-moments estimation of mean, residual variance and correlation of
+scRNA-seq expression under a hypergeometric capture-noise model, with
+differential mean (DE), variability (DV) and correlation (DC) tests by a
+unique-value-compressed multinomial bootstrap and weighted meta-regression.
+The bootstrap runs in a hand-written CUDA kernel
+(``csrc/cascade_bootstrap.cu``) on an NVIDIA Hopper card; every other device
+stage is PyTorch.
 
-Public API (1D slice):
+Public API (the JAX package's names):
   setup_memento, create_groups, get_groups, compute_1d_moments,
-  ht_1d_moments, get_1d_moments, get_1d_ht_result
+  ht_1d_moments, get_1d_moments, get_1d_ht_result (per gene);
+  compute_2d_moments, ht_2d_moments, get_2d_moments, get_2d_ht_result
+  (per gene pair); get_corr_matrix
 """
 
 from .api import (
     compute_1d_moments,
+    compute_2d_moments,
     create_groups,
     get_1d_ht_result,
     get_1d_moments,
+    get_2d_ht_result,
+    get_2d_moments,
+    get_corr_matrix,
     get_groups,
     ht_1d_moments,
+    ht_2d_moments,
     setup_memento,
 )
 from .containers import AnnData, ColumnTable
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 __all__ = [
     "setup_memento",
@@ -33,6 +41,11 @@ __all__ = [
     "ht_1d_moments",
     "get_1d_moments",
     "get_1d_ht_result",
+    "compute_2d_moments",
+    "ht_2d_moments",
+    "get_2d_moments",
+    "get_2d_ht_result",
+    "get_corr_matrix",
     "AnnData",
     "ColumnTable",
 ]

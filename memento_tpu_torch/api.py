@@ -1,25 +1,32 @@
-"""Public API of the 1D slice.
+"""Public API of the port.
 
-Counterpart of ``memento_tpu/api.py`` for the differential mean /
-variability test: ``setup_memento -> create_groups -> compute_1d_moments ->
+Counterpart of ``memento_tpu/api.py``: the differential mean / variability
+test, ``setup_memento -> create_groups -> compute_1d_moments ->
 ht_1d_moments -> get_1d_ht_result`` (plus ``get_groups`` and
-``get_1d_moments``), over the pandas-free ``containers.AnnData`` with the
-same ``adata.uns['memento']`` keys as the JAX package.  Tables come back as
-``ColumnTable``s with the JAX DataFrames' column names and order.
+``get_1d_moments``); the differential correlation test on gene pairs,
+``compute_2d_moments -> ht_2d_moments -> get_2d_ht_result`` (plus
+``get_2d_moments``); and ``get_corr_matrix``.  All run over the pandas-free
+``containers.AnnData`` with the same ``adata.uns['memento']`` keys as the
+JAX package.  Tables come back as ``ColumnTable``s with the JAX DataFrames'
+column names and order.
 
-Host stages are numpy/scipy in float64; the tests run on the device given to
-``ht_1d_moments`` (default ``cuda``).
+Host stages are numpy/scipy in float64; the tests and the correlation matrix
+run on the device given to ``ht_1d_moments`` / ``ht_2d_moments`` /
+``get_corr_matrix`` (default ``cuda``).
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import scipy.sparse as sparse
 
 from .containers import ColumnTable
 from .device import fold_seed
-from .inference.ht import run_ht_1d
+from .inference.ht import run_ht_1d, run_ht_2d
 from .ops import estimators as est
+from .ops.corr import corr_matrix_device, cov_sparse_pairs
 from .ops.mv_regression import fit_mv_regressor
 from .ops.size_factor import bin_size_factor, estimate_size_factor
 
@@ -31,6 +38,11 @@ __all__ = [
     "ht_1d_moments",
     "get_1d_moments",
     "get_1d_ht_result",
+    "get_corr_matrix",
+    "compute_2d_moments",
+    "ht_2d_moments",
+    "get_2d_moments",
+    "get_2d_ht_result",
 ]
 
 RESULT_COLUMNS = ["gene", "tx", "de_coef", "de_se", "de_pval", "dv_coef",
@@ -286,6 +298,62 @@ def compute_1d_moments(adata, inplace=True, min_perc_group=0.7,
         return adata
 
 
+def get_corr_matrix(adata, group, mesh=None, device=None):
+    """All-by-all ``[G, G]`` correlation matrix of one group, as blocked
+    float32 matrix products on ``device`` (default ``cuda``) finished in
+    host float64."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "get_corr_matrix over a device mesh is not ported yet")
+    uns = adata.uns["memento"]
+    return corr_matrix_device(
+        uns["group_cells"][group], uns["size_factor"][group],
+        uns["group_q"][group], uns["1d_moments"][group][1], _model(uns),
+        device=device)
+
+
+def _corr_from_cov_np(cov, var_1, var_2):
+    """Host covariance -> correlation with the sentinel semantics of
+    ``ops.estimators.corr_from_cov``: an entry with a non-positive or NaN
+    variance comes out as 1.0 (not NaN); |corr| == 1 is invalid downstream."""
+    invalid = ~(var_1 > 0) | ~(var_2 > 0)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        corr = cov / np.sqrt(np.where(invalid, 1.0, var_1)
+                             * np.where(invalid, 1.0, var_2))
+    return np.where(invalid, 1.0, np.clip(corr, -1.0, 1.0))
+
+
+def compute_2d_moments(adata, gene_pairs, inplace=True):
+    """Observed covariance and correlation of each ``(gene_1, gene_2)`` name
+    pair in every group."""
+    if not inplace:
+        adata = adata.copy()
+    uns = adata.uns["memento"]
+    if "size_factor" not in uns:
+        _bin_size_factor_uns(adata)
+    model = _model(uns)
+
+    mapping = {name: i for i, name in enumerate(adata.var.index)}
+    idx1 = np.array([mapping[a] for a, _ in gene_pairs], dtype=int)
+    idx2 = np.array([mapping[b] for _, b in gene_pairs], dtype=int)
+    uns["2d_moments"] = {"gene_pairs": gene_pairs, "gene_idx_1": idx1,
+                         "gene_idx_2": idx2}
+
+    for g in uns["groups"]:
+        cells = uns["group_cells"][g]
+        sf = uns["size_factor"][g] if model.relative \
+            else np.ones(cells.shape[0])
+        cov = cov_sparse_pairs(cells, sf, uns["group_q"][g], idx1, idx2,
+                               model)
+        var_1 = uns["1d_moments"][g][1][idx1]
+        var_2 = uns["1d_moments"][g][1][idx2]
+        uns["2d_moments"][g] = {
+            "cov": cov, "corr": _corr_from_cov_np(cov, var_1, var_2),
+            "var_1": var_1, "var_2": var_2}
+    if not inplace:
+        return adata
+
+
 def ht_1d_moments(
     adata,
     covariate,
@@ -364,6 +432,124 @@ def ht_1d_moments(
         return adata
 
 
+def ht_2d_moments(
+    adata,
+    covariate,
+    treatment,
+    treatment_for_gene=None,
+    inplace=True,
+    num_boot=10000,
+    verbose=3,
+    num_cpus=1,  # accepted for API parity; execution is device-parallel
+    resampling="bootstrap",
+    approx=False,
+    resample_rep=False,
+    sampler="auto",
+    tile_size=None,
+    seed=0,
+    checkpoint_dir=None,
+    mesh=None,
+    distributed=False,
+    device=None,
+    **kwargs,
+):
+    """Differential correlation tests for the pairs of
+    ``compute_2d_moments``.
+
+    Unordered duplicates of a pair are tested once and every duplicate row
+    gets the result; a pair of a gene with itself is skipped (NaN).  The
+    result holds one statistic per pair: of a treatment with several columns
+    only the first is tested.  ``covariate``, ``treatment`` and ``device``
+    as in ``ht_1d_moments``.
+    """
+    if treatment_for_gene is not None or checkpoint_dir is not None:
+        raise NotImplementedError(
+            "treatment_for_gene and checkpoint_dir are not ported yet")
+    if not inplace:
+        adata = adata.copy()
+    uns = adata.uns["memento"]
+    model = _model(uns)
+    groups = uns["groups"]
+
+    gene_idx_1 = uns["2d_moments"]["gene_idx_1"]
+    gene_idx_2 = uns["2d_moments"]["gene_idx_2"]
+    n_conv = gene_idx_1.shape[0]
+
+    # dedup unordered pairs; skip self-pairs
+    idx_mapping = {}
+    uniq_pairs = []  # (idx1, idx2, first row that names the pair)
+    for conv_idx in range(n_conv):
+        i1, i2 = int(gene_idx_1[conv_idx]), int(gene_idx_2[conv_idx])
+        if i1 == i2:
+            continue
+        key = frozenset((i1, i2))
+        if key in idx_mapping:
+            idx_mapping[key].append(conv_idx)
+            continue
+        idx_mapping[key] = [conv_idx]
+        uniq_pairs.append((i1, i2, conv_idx))
+
+    out = {name: np.full(n_conv, np.nan)
+           for name in ("corr_coef", "corr_se", "corr_asl")}
+    if uniq_pairs:
+        conv_of_pair = [pair[2] for pair in uniq_pairs]
+        cov_values, _ = _table_values(covariate)
+        treat_values, _ = _table_values(treatment)
+        if treat_values.shape[1] > 1:
+            # the regression treats columns independently, so column 0's
+            # coefficient, SE and p-value do not depend on the others
+            warnings.warn(
+                f"ht_2d_moments received a {treat_values.shape[1]}-column "
+                "treatment but the 2D result reports only the FIRST "
+                "treatment column; run it once per column",
+                UserWarning, stacklevel=2)
+            treat_values = treat_values[:, :1]
+
+        res = run_ht_2d(
+            seed=fold_seed(seed, 0),  # pair block start 0
+            groups=[uns["group_cells"][grp] for grp in groups],
+            approx_sf=[uns["approx_size_factor"][grp] for grp in groups],
+            idx1=np.array([pair[0] for pair in uniq_pairs]),
+            idx2=np.array([pair[1] for pair in uniq_pairs]),
+            true_corr=np.stack([uns["2d_moments"][grp]["corr"][conv_of_pair]
+                                for grp in groups]),
+            q=np.array([uns["group_q"][grp] for grp in groups]),
+            covariate=cov_values,
+            treatment=treat_values,
+            num_boot=int(num_boot),
+            model=model,
+            sampler=sampler,
+            resampling=resampling,
+            approx=approx,
+            resample_rep=resample_rep,
+            tile_size=tile_size,
+            verbose=verbose > 0,
+            mesh=mesh,
+            distributed=distributed,
+            device=device,
+        )
+        # broadcast each unique pair's result to all its duplicates
+        for u, (i1, i2, _) in enumerate(uniq_pairs):
+            rows = idx_mapping[frozenset((i1, i2))]
+            out["corr_coef"][rows] = res["corr_coef"][u, 0]
+            out["corr_se"][rows] = res["corr_se"][u, 0]
+            out["corr_asl"][rows] = res["corr_pval"][u, 0]
+
+    uns["2d_ht"] = {"treatment": treatment, "covariate": covariate, **out}
+    if not inplace:
+        return adata
+
+
+def _groupby_keys(adata, groupby):
+    """The values of obs column ``groupby`` in order of appearance, as
+    strings (``'ALL'``: the prefix every group label shares)."""
+    if groupby == "ALL":
+        return ["sg"]
+    labels = np.asarray(adata.obs[groupby]).astype(str)
+    _, first = np.unique(labels, return_index=True)
+    return labels[np.sort(first)]
+
+
 def get_1d_moments(adata, groupby=None):
     """Per-group log mean and log residual variance tables (and cell counts
     per group), or their cell-weighted averages over the values of
@@ -383,16 +569,9 @@ def get_1d_moments(adata, groupby=None):
     if groupby is None:
         return moment_mean, moment_var, cell_counts
 
-    if groupby != "ALL":
-        labels = np.asarray(adata.obs[groupby]).astype(str)
-        _, first = np.unique(labels, return_index=True)
-        unique_groupby = labels[np.sort(first)]
-    else:
-        unique_groupby = ["sg"]
-
     groupby_mean = ColumnTable({"gene": genes})
     groupby_var = ColumnTable({"gene": genes})
-    for key in unique_groupby:
+    for key in _groupby_keys(adata, groupby):
         gm = gv = 0
         gmc = gvc = 0
         with np.errstate(divide="ignore", invalid="ignore"):
@@ -429,3 +608,52 @@ def get_1d_ht_result(adata) -> ColumnTable:
         "dv_se": ht["var_se"],
         "dv_pval": ht["var_asl"],
     })
+
+
+def _pair_table(uns) -> ColumnTable:
+    pairs = uns["2d_moments"]["gene_pairs"]
+    return ColumnTable({"gene_1": np.array([a for a, _ in pairs]),
+                        "gene_2": np.array([b for _, b in pairs])})
+
+
+def get_2d_moments(adata, groupby=None):
+    """Per-group observed correlations of every pair (and cell counts per
+    group), or their cell-weighted averages over the values of ``groupby``
+    (``'ALL'`` for every group)."""
+    uns = adata.uns["memento"]
+    cell_counts = {k: v.shape[0] for k, v in uns["group_cells"].items()}
+    group_corr = {group: val["corr"]
+                  for group, val in uns["2d_moments"].items()
+                  if isinstance(group, str) and "sg^" in group}
+
+    if groupby is None:
+        moment_corr = _pair_table(uns)
+        for group, corr in group_corr.items():
+            moment_corr[group] = corr
+        return moment_corr, cell_counts
+
+    groupby_corr = _pair_table(uns)
+    for key in _groupby_keys(adata, groupby):
+        gc = gcc = 0
+        for group, corr in group_corr.items():
+            if key not in group:
+                continue
+            c = np.array(corr, dtype=float)
+            valid = ~np.isnan(c)
+            c[~valid] = 0
+            gc = gc + c * cell_counts[group]
+            gcc = gcc + valid * cell_counts[group]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            groupby_corr[groupby + "_" + key] = gc / gcc
+    return groupby_corr
+
+
+def get_2d_ht_result(adata) -> ColumnTable:
+    """2D test results: one row per pair with columns ``gene_1, gene_2,
+    corr_coef, corr_se, corr_pval``."""
+    uns = adata.uns["memento"]
+    result = _pair_table(uns)
+    result["corr_coef"] = uns["2d_ht"]["corr_coef"]
+    result["corr_se"] = uns["2d_ht"]["corr_se"]
+    result["corr_pval"] = uns["2d_ht"]["corr_asl"]
+    return result

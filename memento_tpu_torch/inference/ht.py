@@ -1,17 +1,20 @@
-"""Gene-batched differential mean / variability tests (1D).
+"""Batched differential mean / variability tests (1D, per gene) and
+differential correlation tests (2D, per gene pair).
 
-Counterpart of ``memento_tpu/inference/ht.py`` (its 1D half).  One device
-program, ``ht_1d_tile``, evaluates a padded tile of genes across every
-replicate group at once:
+Counterpart of ``memento_tpu/inference/ht.py``.  One device program per
+test evaluates a padded tile of genes (``ht_1d_tile``) or gene pairs
+(``ht_2d_tile``) across every replicate group at once:
 
   bootstrap sampling  ->  moment contraction  ->  residual-variance transform
-  ->  invalid-value fill  ->  weighted meta-regression  ->  ASL
+  (1D) or covariance -> correlation (2D)  ->  invalid-value fill  ->
+  weighted meta-regression  ->  ASL
 
-and ``run_ht_1d`` tiles the gene axis on the host: it compresses tile t+1 on
-a prefetch thread while the device runs tile t, ships compact transport
-dtypes, bounds the tiles in flight, and refines the flagged p-value tails
-(GEV) on a worker thread.  Group dropping and NaN semantics are masks and
-zero weights, as in the JAX package.
+and ``run_ht_1d`` / ``run_ht_2d`` tile the gene / pair axis on the host
+through one shared loop: tile t+1 is compressed on a prefetch thread while
+the device runs tile t, inputs ship in compact transport dtypes, the tiles in
+flight are bounded, and the flagged p-value tails are refined (GEV) on a
+worker thread.  Group dropping and NaN semantics are masks and zero weights,
+as in the JAX package.
 
 Device math is float32, as on the JAX device path; host stages are float64.
 """
@@ -19,14 +22,14 @@ Device math is float32, as on the JAX device path; host stages are float64.
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..device import fold_seed, generator, resolve_device
-from ..ops.bootstrap import SAMPLERS, bootstrap_1d
-from ..ops.estimators import NoiseModel
+from ..ops.bootstrap import SAMPLERS, bootstrap_1d, bootstrap_2d
+from ..ops.estimators import NoiseModel, corr_from_cov
 from ..ops.mv_regression import residual_variance
 from ..utils import profiling
 from .asl import asl_counting
@@ -79,6 +82,20 @@ def _nanstd(x):
     return torch.sqrt(torch.nanmean((x - m) ** 2, dim=-1))
 
 
+def _decode_inv_sf(inv_sf, inv_sf_sq, sf_binned: bool, dev):
+    """Float32 ``(inv_sf, inv_sf_sq)`` ``[R, T, U]`` on ``dev`` from either
+    transport form: the two float arrays, or (``sf_binned``) uint8 bin ids
+    in ``inv_sf`` and the ``[R, NB]`` reciprocal table in ``inv_sf_sq``."""
+    if not sf_binned:
+        return tuple(torch.as_tensor(x, device=dev).to(torch.float32)
+                     for x in (inv_sf, inv_sf_sq))
+    table = torch.as_tensor(inv_sf_sq, device=dev).to(torch.float32)
+    ids = torch.as_tensor(inv_sf, device=dev).long()
+    inv_sf = torch.gather(table, 1, ids.reshape(ids.shape[0], -1)
+                          ).reshape(ids.shape)
+    return inv_sf, inv_sf * inv_sf
+
+
 def ht_1d_tile(
     seed: int,
     values,  # [R, T, U]
@@ -123,15 +140,7 @@ def ht_1d_tile(
 
     values = f32(values)
     counts = f32(counts)
-    if sf_binned:
-        table = f32(inv_sf_sq)  # [R, NB]
-        ids = torch.as_tensor(inv_sf, device=dev).long()
-        inv_sf = torch.gather(table, 1, ids.reshape(ids.shape[0], -1)
-                              ).reshape(ids.shape)
-        inv_sf_sq = inv_sf * inv_sf
-    else:
-        inv_sf = f32(inv_sf)
-        inv_sf_sq = f32(inv_sf_sq)
+    inv_sf, inv_sf_sq = _decode_inv_sf(inv_sf, inv_sf_sq, sf_binned, dev)
     n_unique = torch.as_tensor(n_unique, device=dev)
     true_mean = f32(true_mean)
     true_res_var = f32(true_res_var)
@@ -219,6 +228,114 @@ def ht_1d_tile(
     }
 
 
+# Folded into a 2D tile's seed before its stages, so that a pair tile and a
+# gene tile given the same derived seed (same run seed, same tile start)
+# still draw different streams.
+_PATH_2D = 0x2D
+
+
+def ht_2d_tile(
+    seed: int,
+    values_1,  # [R, P, U]
+    values_2,  # [R, P, U]
+    counts,  # [R, P, U]
+    inv_sf,  # [R, P, U] (uint8 bin ids when sf_binned)
+    inv_sf_sq,  # [R, P, U] (the [R, NB] reciprocal table when sf_binned)
+    true_corr,  # [R, P]
+    q,  # [R]
+    n_obs,  # [R]
+    covariate,  # [R, K]
+    treatment,  # [P, R, Kt]
+    *,
+    num_boot: int,
+    model: NoiseModel,
+    sampler: str = "cascade",
+    one_sample: bool = False,
+    resampling: str = "bootstrap",
+    approx: bool = False,
+    resample_rep: bool = False,
+    sf_binned: bool = False,
+    treat_padded: bool = False,
+    custom_est=None,
+    device=None,
+):
+    """Differential-correlation test for one tile of gene pairs.
+
+    Inputs are numpy arrays (any transport dtype) or tensors; they move to
+    ``device`` (default ``cuda``) and are computed in float32.  ``seed`` is
+    the tile's derived seed; the tile folds the 2D path constant into it and
+    then the stages (0: bootstrap, 1: fill, 2: replicate resampling).
+
+    One joint resample per (group, pair) gives the replicate covariance and
+    both variances (W = 5 sums).  A replicate with an invalid variance is
+    the sentinel correlation 1.0 and stays in the null; only non-finite
+    replicates are refilled.  A group whose observed correlation is not
+    finite or has |corr| == 1 is dropped for that pair (zero weight).
+
+    Returns a dict of ``[P, Kt]`` tensors (observed coefficient, bootstrap
+    SE, first-stage p-value, GEV flags) and the full coefficient tensor
+    ``[P, Kt, B+1]`` for the host tail refinement.
+    """
+    if custom_est is not None:
+        raise NotImplementedError(
+            "custom (fn_1d, fn_cov) estimators are not ported yet")
+    dev = resolve_device(device)
+    seed = fold_seed(seed, _PATH_2D)
+
+    def f32(x):
+        return torch.as_tensor(x, device=dev).to(torch.float32)
+
+    values_1 = f32(values_1)
+    values_2 = f32(values_2)
+    counts = f32(counts)
+    inv_sf, inv_sf_sq = _decode_inv_sf(inv_sf, inv_sf_sq, sf_binned, dev)
+    true_corr = f32(true_corr)
+    q = f32(q)
+    n_obs = f32(n_obs)
+    covariate = f32(covariate)
+    treatment = f32(treatment)
+
+    cov, var_1, var_2 = bootstrap_2d(
+        values_1, values_2, counts, inv_sf, inv_sf_sq, n_obs[:, None],
+        q[:, None], model, num_boot, fold_seed(seed, 0), sampler)  # [R, P, B]
+    boot_corr_raw = corr_from_cov(cov, var_1, var_2)
+
+    filled_corr, corr_dead = fill_invalid(
+        generator(fold_seed(seed, 1), dev), boot_corr_raw,
+        torch.isfinite(boot_corr_raw))
+
+    moments_ok = torch.isfinite(true_corr) & (true_corr.abs() != 1.0)
+    good = moments_ok & ~corr_dead  # [R, P]
+
+    zero = torch.zeros((), device=dev)
+    boot_corr = torch.cat(
+        [torch.where(good, true_corr, zero)[..., None], filled_corr], -1)
+    boot_corr = torch.where(good[..., None], boot_corr, zero)
+
+    weights = torch.where(good, n_obs[:, None], zero).T  # [P, R]
+    os_vec = None if one_sample else \
+        _dynamic_one_sample(treatment, good.T, treat_padded)  # [P]
+    gen = generator(fold_seed(seed, 2), dev) if resample_rep else None
+    corr_coef = meta_regress(covariate, treatment, boot_corr.transpose(0, 1),
+                             weights, one_sample=one_sample,
+                             resample_rep=resample_rep, gen=gen,
+                             one_sample_g=os_vec)  # [P, Kt, B+1]
+
+    corr_se = _nanstd(corr_coef[..., 1:])
+    corr_pval, corr_needs = asl_counting(corr_coef, resampling, approx)
+
+    # pairs with no valid group at all -> NaN
+    any_good = good.any(0)[:, None]  # [P, 1]
+    nan = torch.tensor(float("nan"), device=dev)
+    return {
+        "corr_coef": torch.where(any_good, corr_coef[..., 0], nan),
+        "corr_se": torch.where(any_good, corr_se, nan),
+        "corr_pval": torch.where(any_good, corr_pval, nan),
+        "corr_needs_gev": corr_needs & any_good,
+        "corr_coef_full": corr_coef,
+    }
+
+
 # ---------------------------------------------------------------------------
 # Host orchestration: pad genes into tiles, run tiles, refine tails
 # ---------------------------------------------------------------------------
@@ -285,13 +402,20 @@ def default_tile_size(r: int, num_boot: int,
     return (t // 64) * 64
 
 
+# Cap on the default pair-tile size.  Inherited from the JAX package, where
+# it bounds the joint pair packer's host cost and the padded U that one
+# outlier pair forces on a whole tile; not measured on a CUDA card.
+MAX_PAIR_TILE = 2048
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
 def _max_combo_count(compressed, approx_sf) -> float:
     """Upper bound on any combo multiplicity: the largest size-factor-bin
-    population (a combo can never exceed its bin's occupancy)."""
+    population (a combo can never exceed its bin's occupancy; the zero-zero
+    combo of a gene pair can reach it)."""
     if compressed is not None:
         return max((float(np.max(c.counts, initial=0.0)) for c in compressed),
                    default=0.0)
@@ -322,18 +446,19 @@ def _count_dtype(cmax: float):
     return np.float32
 
 
-def _global_value_max(compressed, groups) -> float:
+def _global_value_max(compressed, groups,
+                      fields: Sequence[str] = ("values",)) -> float:
     if compressed is not None:
-        return max((float(np.max(c.values, initial=0.0)) for c in compressed),
-                   default=0.0)
+        return max((float(np.max(getattr(c, f), initial=0.0))
+                    for c in compressed for f in fields), default=0.0)
     return max((float(grp.max()) if grp.nnz else 0.0 for grp in groups),
                default=0.0)
 
 
 def _one_sample_flags(treatment: np.ndarray, per_item: bool) -> bool:
-    """Static all-genes one-sample shortcut: a globally all-ones treatment
+    """Static all-items one-sample shortcut: a globally all-ones treatment
     stays all-ones after any group drop, so the tiles skip the regression.
-    Otherwise the tiles decide per gene after the drop."""
+    Otherwise the tiles decide per gene (or pair) after the drop."""
     if not per_item:
         return bool(np.all(treatment == 1))
     col_used = (treatment != 0).any(axis=1)  # [G, Kt]; False = padding
@@ -343,7 +468,7 @@ def _one_sample_flags(treatment: np.ndarray, per_item: bool) -> bool:
 
 
 # Bound on tiles launched but not yet harvested: each pending result pins
-# two [T, Kt, B+1] float32 coefficient tensors on the device.
+# its [T, Kt, B+1] float32 coefficient tensors on the device.
 DEFAULT_MAX_PENDING = 3
 
 
@@ -357,6 +482,124 @@ def _resolve_sampler(sampler: str, device: torch.device) -> str:
             f"sampler {sampler!r} is not ported yet; options: "
             f"{('auto',) + SAMPLERS}")
     return sampler
+
+
+def _refuse_unported(custom, mesh, distributed: bool) -> None:
+    if custom is not None or mesh is not None or distributed:
+        raise NotImplementedError(
+            "custom estimators, mesh and distributed runs are not ported yet")
+
+
+def _sf_transport(comps, csl, u: int, t: int):
+    """Size factors of one tile in transport form, ``(inv_sf, inv_sf_sq,
+    binned)``: one uint8 bin id per slot plus an ``[R, NB]`` reciprocal
+    table where every group has the compact form, else two float16 arrays
+    (quantized size factors tolerate float16).  ``csl`` slices the item axis
+    of pre-compressed groups."""
+    binned = all(c.sf_bin is not None for c in comps)
+    if binned:
+        isf = np.stack([_pad_axis(c.sf_bin[csl], u, 1, 0) for c in comps]
+                       ).astype(np.uint8)
+        nb = max(len(c.bin_inv_sf) for c in comps)
+        isf2 = np.stack([_pad_axis(c.bin_inv_sf, nb, 0, 1.0)
+                         for c in comps]).astype(np.float32)
+        return _pad_axis(isf, t, 1, 0), isf2, True
+    isf = np.stack([_pad_axis(c.inv_sf[csl], u, 1, 1.0) for c in comps])
+    isf2 = np.stack([_pad_axis(c.inv_sf_sq[csl], u, 1, 1.0) for c in comps])
+    return (_pad_axis(isf, t, 1, 1.0).astype(np.float16),
+            _pad_axis(isf2, t, 1, 1.0).astype(np.float16), False)
+
+
+def _treatment_tile(treatment: np.ndarray, start: int, stop: int, t: int):
+    """``[t, R, Kt]`` float32 treatment of one tile, zero-padded."""
+    if treatment.ndim == 3:
+        tile = treatment[start:stop]
+    else:
+        tile = np.broadcast_to(treatment, (stop - start, *treatment.shape))
+    return np.asarray(_pad_axis(tile, t, 0), dtype=np.float32)
+
+
+def _run_tiles(label: str, unit: str, stats: Sequence[str], n_items: int,
+               tile_size: int, kt: int, pack: Callable, launch: Callable, *,
+               dev, resampling: str, approx: bool, max_pending: int,
+               verbose: bool, note: str):
+    """The tile loop of both tests.
+
+    ``pack(start, stop)`` builds one tile's host inputs (a tuple of numpy
+    arrays and a dict of static options) on the prefetch thread, so tile
+    t+1 is compressed while the device runs tile t.  ``launch(start, args,
+    static)`` runs the tile's device program on the transferred arrays and
+    returns its result dict.  Results are harvested at most ``max_pending``
+    tiles behind the launches; flagged p-value tails go to the GEV worker.
+    Phases are timed as ``<label>.*``.
+
+    Returns ``{<stat>_coef, <stat>_se, <stat>_pval}`` ``[n_items, Kt]``
+    float64 arrays for each name in ``stats``.
+    """
+    out = {f"{stat}_{k}": np.full((n_items, kt), np.nan)
+           for stat in stats for k in ("coef", "se", "pval")}
+    starts = list(range(0, n_items, tile_size))
+    progress = profiling.ProgressReporter(n_items, unit=unit, label=label,
+                                          enabled=bool(verbose))
+    progress.note(note)
+    gev_worker = _DeferredGEV(f"{label}.gev.refine")
+
+    def harvest(start, stop, res):
+        n = stop - start
+        sl = slice(start, stop)
+        for stat in stats:
+            with profiling.phase(f"{label}.harvest"):
+                coef, se, pval = (res[f"{stat}_{k}"][:n].cpu().numpy()
+                                  for k in ("coef", "se", "pval"))
+            rows_dev = gi = gk = None
+            if not approx:
+                with profiling.phase(f"{label}.gev"):
+                    needs = res[f"{stat}_needs_gev"][:n].cpu().numpy()
+                    if needs.any():
+                        # gather only the flagged rows on the device; the
+                        # copy and the refit run on the worker thread
+                        gi, gk = np.nonzero(needs)
+                        full = res[f"{stat}_coef_full"]
+                        rows_dev = full[torch.as_tensor(gi, device=full.device),
+                                        torch.as_tensor(gk, device=full.device)]
+            out[f"{stat}_coef"][sl] = coef
+            out[f"{stat}_se"][sl] = se
+            out[f"{stat}_pval"][sl] = pval
+            if rows_dev is not None:
+                gev_worker.submit(rows_dev, start + gi, gk,
+                                  out[f"{stat}_pval"], resampling)
+        progress.update(stop - start)
+
+    def _pack(start):
+        with profiling.phase(f"{label}.compress+pack"):
+            return pack(start, min(start + tile_size, n_items))
+
+    pending = []
+    # one prefetch thread: tile t+1 compresses while tile t runs
+    prefetch = ThreadPoolExecutor(1, thread_name_prefix=f"{label}-pack")
+    try:
+        fut = prefetch.submit(_pack, starts[0]) if starts else None
+        for i, start in enumerate(starts):
+            host_args, static = fut.result()
+            fut = (prefetch.submit(_pack, starts[i + 1])
+                   if i + 1 < len(starts) else None)
+            with profiling.phase(f"{label}.transfer", device=dev):
+                tile_args = tuple(torch.as_tensor(np.ascontiguousarray(a),
+                                                  device=dev)
+                                  for a in host_args)
+            with profiling.phase(f"{label}.dispatch", device=dev):
+                res = launch(start, tile_args, static)
+            pending.append((start, min(start + tile_size, n_items), res))
+            while len(pending) > max_pending:
+                harvest(*pending.pop(0))
+        for item in pending:
+            harvest(*item)
+    finally:
+        prefetch.shutdown(wait=True, cancel_futures=True)
+        with profiling.phase(f"{label}.gev.join"):
+            gev_worker.finish()
+    progress.close()
+    return out
 
 
 def run_ht_1d(
@@ -398,9 +641,7 @@ def run_ht_1d(
     Returns a dict of ``[G, Kt]`` float64 arrays: mean_coef/se/pval,
     var_coef/se/pval.
     """
-    if custom_1d is not None or mesh is not None or distributed:
-        raise NotImplementedError(
-            "custom estimators, mesh and distributed runs are not ported yet")
+    _refuse_unported(custom_1d, mesh, distributed)
     from ..ops.compress import compress_group
 
     dev = resolve_device(device)
@@ -425,17 +666,12 @@ def run_ht_1d(
 
     if tile_size is None:
         tile_size = min(default_tile_size(r, num_boot), _round_up(g, 64))
-
-    out = {
-        k: np.full((g, kt), np.nan)
-        for k in ["mean_coef", "mean_se", "mean_pval", "var_coef", "var_se",
-                  "var_pval"]
-    }
+    t = tile_size
 
     vdtype = _value_dtype(_global_value_max(compressed, groups))
     cdtype = _count_dtype(_max_combo_count(compressed, approx_sf))
 
-    def tile_inputs(start, stop, t):
+    def pack(start, stop):
         sl = slice(start, stop)
         if compressed is not None:
             u = u_fixed
@@ -452,119 +688,153 @@ def run_ht_1d(
             counts = np.stack([_pad_axis(c.counts, u, 1) for c in comps])
             nuq = np.stack([c.n_unique for c in comps])
             csl = slice(None)
-        binned = all(c.sf_bin is not None for c in comps)
-        if binned:
-            # compact transport: 1 uint8 bin id per slot + a [R, NB] table
-            isf = np.stack([_pad_axis(c.sf_bin[csl], u, 1, 0) for c in comps]
-                           ).astype(np.uint8)
-            nb = max(len(c.bin_inv_sf) for c in comps)
-            isf2 = np.stack([_pad_axis(c.bin_inv_sf, nb, 0, 1.0)
-                             for c in comps]).astype(np.float32)
-            isf = _pad_axis(isf, t, 1, 0)
-        else:
-            # quantized size factors tolerate float16
-            isf = np.stack([_pad_axis(c.inv_sf[csl], u, 1, 1.0)
-                            for c in comps])
-            isf2 = np.stack([_pad_axis(c.inv_sf_sq[csl], u, 1, 1.0)
-                             for c in comps])
-            isf = _pad_axis(isf, t, 1, 1.0).astype(np.float16)
-            isf2 = _pad_axis(isf2, t, 1, 1.0).astype(np.float16)
-        values = _pad_axis(values, t, 1).astype(vdtype)
-        counts = _pad_axis(counts, t, 1).astype(cdtype)
-        return (values, counts, isf, isf2,
-                _pad_axis(nuq, t, 1).astype(np.int32), binned)
+        isf, isf2, binned = _sf_transport(comps, csl, u, t)
+        host_args = (
+            _pad_axis(values, t, 1).astype(vdtype),
+            _pad_axis(counts, t, 1).astype(cdtype),
+            isf,
+            isf2,
+            _pad_axis(nuq, t, 1).astype(np.int32),
+            _pad_axis(true_mean[:, sl], t, 1, fill=np.nan),
+            _pad_axis(true_res_var[:, sl], t, 1, fill=np.nan),
+            np.asarray(mv_coeffs, dtype=np.float32),
+            np.asarray(q, dtype=np.float32),
+            n_obs,
+            np.asarray(covariate, dtype=np.float32),
+            _treatment_tile(treatment, start, stop, t),
+        )
+        return host_args, {"sf_binned": binned}
 
-    def harvest(start, stop, res):
-        n = stop - start
+    def launch(start, tile_args, static):
+        return ht_1d_tile(
+            fold_seed(seed, start), *tile_args,
+            num_boot=num_boot, model=model, sampler=sampler,
+            one_sample=one_sample, resampling=resampling,
+            approx=approx, resample_rep=resample_rep,
+            treat_padded=per_gene_treatment, device=dev, **static)
+
+    return _run_tiles(
+        "ht1d", "genes", ("mean", "var"), g, tile_size, kt, pack, launch,
+        dev=dev, resampling=resampling, approx=approx,
+        max_pending=max_pending, verbose=verbose,
+        note=f"{g} genes in tiles of {tile_size} on {dev} "
+             f"(sampler {sampler})")
+
+
+def run_ht_2d(
+    seed: int,
+    compressed_pairs: Optional[Sequence] = None,  # list[CompressedPairGroup]
+    true_corr: np.ndarray = None,  # [R, P]
+    q: np.ndarray = None,  # [R]
+    covariate: np.ndarray = None,  # [R, K]
+    treatment: np.ndarray = None,  # [R, Kt] or [P, R, Kt]
+    num_boot: int = 1000,
+    model: NoiseModel = None,
+    sampler: str = "auto",
+    resampling: str = "bootstrap",
+    approx: bool = False,
+    resample_rep: bool = False,
+    tile_size: Optional[int] = None,
+    verbose: bool = False,
+    groups: Optional[Sequence] = None,  # list of [Nc_r, G] sparse CSC
+    approx_sf: Optional[Sequence] = None,  # list of [Nc_r] quantized factors
+    idx1: Optional[np.ndarray] = None,  # [P] gene indices of each pair
+    idx2: Optional[np.ndarray] = None,
+    max_pending: int = DEFAULT_MAX_PENDING,
+    device=None,
+    custom_est=None,
+    mesh=None,
+    distributed: bool = False,
+):
+    """Run the 2D (differential correlation) test over all pairs, tiling the
+    pair axis.
+
+    Two input modes, as in ``run_ht_1d``:
+      - ``compressed_pairs=[CompressedPairGroup, ...]``: pre-compressed.
+      - ``groups=[csc, ...], approx_sf=[...], idx1, idx2``: raw per-group
+        matrices and pair indices; each tile's pairs are jointly compressed
+        (``compress_pairs``) on the prefetch thread.
+
+    Each tile's seed is ``fold_seed(seed, tile start)``; ``ht_2d_tile`` folds
+    the 2D path constant into it.
+
+    Returns a dict of ``[P, Kt]`` float64 arrays: corr_coef/se/pval.
+    """
+    _refuse_unported(custom_est, mesh, distributed)
+    from ..ops.compress import compress_pairs
+
+    dev = resolve_device(device)
+    sampler = _resolve_sampler(sampler, dev)
+    if compressed_pairs is not None:
+        r = len(compressed_pairs)
+        u_fixed = max(c.padded_u for c in compressed_pairs)
+        n_obs = [c.n_obs for c in compressed_pairs]
+    else:
+        r = len(groups)
+        u_fixed = None
+        n_obs = [grp.shape[0] for grp in groups]
+    n_obs = np.array(n_obs, dtype=np.float32)
+    p = true_corr.shape[1]
+
+    per_pair_treatment = treatment.ndim == 3
+    kt = treatment.shape[-1]
+    one_sample = _one_sample_flags(treatment, per_pair_treatment)
+
+    if tile_size is None:
+        tile_size = min(default_tile_size(r, num_boot), MAX_PAIR_TILE,
+                        _round_up(p, 64))
+    t = tile_size
+
+    vdtype = _value_dtype(_global_value_max(compressed_pairs, groups,
+                                            ("values_1", "values_2")))
+    # the zero-zero combo of a bin can hold the bin's whole population
+    cdtype = _count_dtype(_max_combo_count(compressed_pairs, approx_sf))
+
+    def pack(start, stop):
         sl = slice(start, stop)
-        for stat in ("mean", "var"):
-            with profiling.phase("ht1d.harvest"):
-                coef, se, pval = (res[f"{stat}_{k}"][:n].cpu().numpy()
-                                  for k in ("coef", "se", "pval"))
-            rows_dev = gi = gk = None
-            if not approx:
-                with profiling.phase("ht1d.gev"):
-                    needs = res[f"{stat}_needs_gev"][:n].cpu().numpy()
-                    if needs.any():
-                        # gather only the flagged rows on the device; the
-                        # copy and the refit run on the worker thread
-                        gi, gk = np.nonzero(needs)
-                        full = res[f"{stat}_coef_full"]
-                        rows_dev = full[torch.as_tensor(gi, device=full.device),
-                                        torch.as_tensor(gk, device=full.device)]
-            out[f"{stat}_coef"][sl] = coef
-            out[f"{stat}_se"][sl] = se
-            out[f"{stat}_pval"][sl] = pval
-            if rows_dev is not None:
-                gev_worker.submit(rows_dev, start + gi, gk,
-                                  out[f"{stat}_pval"], resampling)
-        progress.update(min(stop, g) - start)
+        if compressed_pairs is not None:
+            u = u_fixed
+            comps = compressed_pairs
+            csl = sl
+        else:
+            comps = [compress_pairs(grp, asf, idx1[sl], idx2[sl])
+                     for grp, asf in zip(groups, approx_sf)]
+            u = _round_up(max(c.padded_u for c in comps), 64)
+            csl = slice(None)
+        v1, v2, cnt = (
+            _pad_axis(np.stack([_pad_axis(getattr(c, f)[csl], u, 1)
+                                for c in comps]), t, 1)
+            for f in ("values_1", "values_2", "counts"))
+        isf, isf2, binned = _sf_transport(comps, csl, u, t)
+        host_args = (
+            v1.astype(vdtype),
+            v2.astype(vdtype),
+            cnt.astype(cdtype),
+            isf,
+            isf2,
+            _pad_axis(true_corr[:, sl], t, 1, fill=np.nan),
+            np.asarray(q, dtype=np.float32),
+            n_obs,
+            np.asarray(covariate, dtype=np.float32),
+            _treatment_tile(treatment, start, stop, t),
+        )
+        return host_args, {"sf_binned": binned}
 
-    starts = list(range(0, g, tile_size))
-    progress = profiling.ProgressReporter(g, unit="genes", label="ht1d",
-                                          enabled=bool(verbose))
-    progress.note(f"{g} genes in tiles of {tile_size} on {dev} "
-                  f"(sampler {sampler})")
-    pending = []
-    gev_worker = _DeferredGEV("ht1d.gev.refine")
+    def launch(start, tile_args, static):
+        return ht_2d_tile(
+            fold_seed(seed, start), *tile_args,
+            num_boot=num_boot, model=model, sampler=sampler,
+            one_sample=one_sample, resampling=resampling,
+            approx=approx, resample_rep=resample_rep,
+            treat_padded=per_pair_treatment, device=dev, **static)
 
-    def _pack(start):
-        with profiling.phase("ht1d.compress+pack"):
-            return tile_inputs(start, min(start + tile_size, g), tile_size)
-
-    # one prefetch thread: tile t+1 compresses while tile t runs
-    prefetch = ThreadPoolExecutor(1, thread_name_prefix="ht1d-pack")
-    try:
-        fut = prefetch.submit(_pack, starts[0]) if starts else None
-        for i, start in enumerate(starts):
-            stop = min(start + tile_size, g)
-            t = tile_size
-            sl = slice(start, stop)
-            values, counts, isf, isf2, nuq, binned = fut.result()
-            fut = (prefetch.submit(_pack, starts[i + 1])
-                   if i + 1 < len(starts) else None)
-            if per_gene_treatment:
-                treat_tile = _pad_axis(treatment[sl], t, 0)
-            else:
-                treat_tile = np.broadcast_to(treatment, (stop - start, r, kt))
-                treat_tile = _pad_axis(treat_tile, t, 0)
-            host_args = (
-                values,
-                counts,
-                isf,
-                isf2,
-                nuq,
-                _pad_axis(true_mean[:, sl], t, 1, fill=np.nan),
-                _pad_axis(true_res_var[:, sl], t, 1, fill=np.nan),
-                np.asarray(mv_coeffs, dtype=np.float32),
-                np.asarray(q, dtype=np.float32),
-                n_obs,
-                np.asarray(covariate, dtype=np.float32),
-                np.asarray(treat_tile, dtype=np.float32),
-            )
-            with profiling.phase("ht1d.transfer", device=dev):
-                tile_args = tuple(torch.as_tensor(np.ascontiguousarray(a),
-                                                  device=dev)
-                                  for a in host_args)
-            with profiling.phase("ht1d.dispatch", device=dev):
-                res = ht_1d_tile(
-                    fold_seed(seed, start), *tile_args,
-                    num_boot=num_boot, model=model, sampler=sampler,
-                    one_sample=one_sample, resampling=resampling,
-                    approx=approx, resample_rep=resample_rep,
-                    sf_binned=binned, treat_padded=per_gene_treatment,
-                    device=dev)
-            pending.append((start, stop, res))
-            while len(pending) > max_pending:
-                harvest(*pending.pop(0))
-        for item in pending:
-            harvest(*item)
-    finally:
-        prefetch.shutdown(wait=True, cancel_futures=True)
-        with profiling.phase("ht1d.gev.join"):
-            gev_worker.finish()
-    progress.close()
-    return out
+    return _run_tiles(
+        "ht2d", "pairs", ("corr",), p, tile_size, kt, pack, launch,
+        dev=dev, resampling=resampling, approx=approx,
+        max_pending=max_pending, verbose=verbose,
+        note=f"{p} pairs in tiles of {tile_size} on {dev} "
+             f"(sampler {sampler})")
 
 
-__all__ = ["fill_invalid", "ht_1d_tile", "run_ht_1d", "default_tile_size"]
+__all__ = ["fill_invalid", "ht_1d_tile", "ht_2d_tile", "run_ht_1d",
+           "run_ht_2d", "default_tile_size", "MAX_PAIR_TILE"]

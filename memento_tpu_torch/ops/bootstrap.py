@@ -1,14 +1,17 @@
-"""Bootstrap replicate moments from compressed tiles.
+"""Bootstrap replicate moments from compressed tiles (1D and 2D).
 
-Counterpart of ``memento_tpu/ops/bootstrap.py::bootstrap_1d``.  With unique
-values ``x_u``, size factors ``sf_u`` and resampled multiplicities
-``n_ub``::
+Counterpart of ``memento_tpu/ops/bootstrap.py::bootstrap_1d`` and
+``bootstrap_2d`` (their cascade branch).  With unique values ``x_u``, size
+factors ``sf_u`` and resampled multiplicities ``n_ub``::
 
-    M1_b = sum_u (x_u / sf_u)                 * n_ub / N
-    M2_b = sum_u (x_u^2 - c x_u) / sf_u^2     * n_ub / N
+    M1_b  = sum_u (x_u / sf_u)                 * n_ub / N
+    M2_b  = sum_u (x_u^2 - c x_u) / sf_u^2     * n_ub / N
+    Mxy_b = sum_u (x_u y_u) / sf_u^2           * n_ub / N     (gene pairs)
 
-so each replicate's moments are two weighted sums of the resample, which the
-fused cascade computes without materializing ``n_ub``.
+so each replicate's moments are weighted sums of one resample: two per gene
+(W = 2; one for ``mean_only``), five per gene pair (W = 5: both means, the
+cross moment and both second moments from a single joint resample).  The
+fused cascade computes them without materializing ``n_ub``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,36 @@ from .estimators import NoiseModel
 from .sampling import fused_bootstrap_sums
 
 SAMPLERS = ("cascade", "cascade_cuda")
+
+
+def _row_params(counts, n_obs, q):
+    """``n_obs`` and ``q`` broadcast to the batch shape of ``counts``."""
+    batch = counts.shape[:-1]
+    return tuple(
+        torch.broadcast_to(
+            torch.as_tensor(x, dtype=torch.float32, device=counts.device),
+            batch)
+        for x in (n_obs, q))
+
+
+def _moment_sums(counts, weights, n_rows, num_boot: int, seed: int,
+                 sampler: str):
+    """Per-cell weighted sums of the resample, ``[..., W, B]``: the batch
+    flattens to rows (each with its own trial count) for the fused cascade,
+    the kernel or its plain version."""
+    if sampler not in SAMPLERS:
+        raise NotImplementedError(
+            f"sampler {sampler!r} is not ported yet (1D and 2D alike); "
+            f"options: {SAMPLERS}")
+    batch = counts.shape[:-1]
+    u_dim = counts.shape[-1]
+    w_dim = weights.shape[-1]
+    fused = fused_bootstrap_sums_cuda if sampler == "cascade_cuda" \
+        else fused_bootstrap_sums
+    sums = fused(counts.reshape(-1, u_dim).contiguous(),
+                 weights.reshape(-1, u_dim, w_dim).contiguous(),
+                 n_rows.reshape(-1).contiguous(), num_boot, seed)
+    return sums.reshape(*batch, w_dim, num_boot) / n_rows[..., None, None]
 
 
 def bootstrap_1d(values, counts, inv_sf, inv_sf_sq, n_obs, q,
@@ -38,32 +71,55 @@ def bootstrap_1d(values, counts, inv_sf, inv_sf_sq, n_obs, q,
       (mean, var): ``[..., B]`` float32.  Rows that collapsed to <= 1 unique
       combo are masked by the caller.
     """
-    if sampler not in SAMPLERS:
-        raise NotImplementedError(
-            f"sampler {sampler!r} is not ported yet; options: {SAMPLERS}")
-    batch = counts.shape[:-1]
-    u_dim = counts.shape[-1]
-    dev = counts.device
-    n_rows = torch.broadcast_to(
-        torch.as_tensor(n_obs, dtype=torch.float32, device=dev), batch)
-    q_rows = torch.broadcast_to(
-        torch.as_tensor(q, dtype=torch.float32, device=dev), batch)
+    n_rows, q_rows = _row_params(counts, n_obs, q)
     a = values * inv_sf
     if model.mean_only:
         w = a[..., None]
     else:
         c = model.var_correction(q_rows)[..., None]
         w = torch.stack([a, (values * values - c * values) * inv_sf_sq], -1)
-    fused = fused_bootstrap_sums_cuda if sampler == "cascade_cuda" \
-        else fused_bootstrap_sums
-    sums = fused(counts.reshape(-1, u_dim).contiguous(),
-                 w.reshape(-1, u_dim, w.shape[-1]).contiguous(),
-                 n_rows.reshape(-1).contiguous(), num_boot, seed)
-    sums = sums.reshape(*batch, w.shape[-1], num_boot)
-    m1 = sums[..., 0, :] / n_rows[..., None]
+    m = _moment_sums(counts, w, n_rows, num_boot, seed, sampler)
+    m1 = m[..., 0, :]
     if model.mean_only:
         return m1 + 1.0, torch.full_like(m1, 10.0)
-    return m1, sums[..., 1, :] / n_rows[..., None] - m1 * m1
+    return m1, m[..., 1, :] - m1 * m1
 
 
-__all__ = ["bootstrap_1d", "SAMPLERS"]
+def pair_weights(values_1, values_2, inv_sf, inv_sf_sq, c):
+    """The five contraction weights of a gene pair, ``[..., U, 5]``: the two
+    means, the cross moment and the two second moments (``c`` is the noise
+    model's variance correction, broadcastable to ``[..., U]``)."""
+    return torch.stack([
+        values_1 * inv_sf,
+        values_2 * inv_sf,
+        values_1 * values_2 * inv_sf_sq,
+        (values_1 * values_1 - c * values_1) * inv_sf_sq,
+        (values_2 * values_2 - c * values_2) * inv_sf_sq,
+    ], -1)
+
+
+def bootstrap_2d(values_1, values_2, counts, inv_sf, inv_sf_sq, n_obs, q,
+                 model: NoiseModel, num_boot: int, seed: int,
+                 sampler: str = "cascade"):
+    """Bootstrap replicate covariance and marginal variances for rows of
+    joint compressed tiles: one joint resample drives all three.
+
+    Args:
+      values_1, values_2, counts, inv_sf, inv_sf_sq: ``[..., U]`` float32
+        tiles (``CompressedPairGroup`` arrays).
+      n_obs, q, sampler: as in ``bootstrap_1d``.
+
+    Returns:
+      (cov, var_1, var_2): ``[..., B]`` float32.
+    """
+    n_rows, q_rows = _row_params(counts, n_obs, q)
+    c = model.var_correction(q_rows)[..., None]
+    w = pair_weights(values_1, values_2, inv_sf, inv_sf_sq, c)
+    m = _moment_sums(counts, w, n_rows, num_boot, seed, sampler)
+    m1, m2 = m[..., 0, :], m[..., 1, :]
+    return (m[..., 2, :] - m1 * m2,
+            m[..., 3, :] - m1 * m1,
+            m[..., 4, :] - m2 * m2)
+
+
+__all__ = ["bootstrap_1d", "bootstrap_2d", "pair_weights", "SAMPLERS"]

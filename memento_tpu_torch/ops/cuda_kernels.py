@@ -5,7 +5,9 @@ port of the TPU kernel ``memento_tpu/ops/pallas_kernels.py::
 _cascade_chunk_kernel``).  For a tensor on the CPU it runs the plain version,
 ``ops/sampling.py::fused_bootstrap_sums``; for a CUDA tensor it launches the
 kernel or raises.  ``LAUNCHES`` counts kernel launches, so a run can show
-that its main path went through the kernel.
+that its main path went through the kernel; ``LAUNCHES_BY_W`` splits the
+same count by the number of weights W (2 or 1 from the 1D test, 5 from the
+2D test).
 """
 
 from __future__ import annotations
@@ -16,13 +18,15 @@ import torch
 
 from . import kernel_build, sampling
 
-LAUNCHES = {"cascade_bootstrap": 0}
 SUPPORTED_W = (1, 2, 5)
+LAUNCHES = {"cascade_bootstrap": 0}
+LAUNCHES_BY_W = {w: 0 for w in SUPPORTED_W}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, LAUNCHES_BY_W):
+        for name in counts:
+            counts[name] = 0
 
 
 def _cascade_library():
@@ -89,7 +93,9 @@ def fused_bootstrap_sums_cuda(counts, weights, n_obs, num_boot: int,
     if rc != 0:
         raise RuntimeError(f"cascade_bootstrap launch failed: cudaError {rc}")
     LAUNCHES["cascade_bootstrap"] += 1
+    LAUNCHES_BY_W[w_dim] += 1
     return out
 
 
-__all__ = ["fused_bootstrap_sums_cuda", "LAUNCHES", "reset_launches"]
+__all__ = ["fused_bootstrap_sums_cuda", "LAUNCHES", "LAUNCHES_BY_W",
+           "reset_launches"]

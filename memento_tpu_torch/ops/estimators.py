@@ -13,7 +13,8 @@ through three sufficient statistics per gene::
 
 Observed moments are computed once per group on the host in float64 with
 scipy; the bootstrap replicates contract the same per-bin weights on the
-device (``ops/bootstrap.py``).
+device (``ops/bootstrap.py``), where ``corr_from_cov`` turns replicate
+covariances into correlations.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import scipy.sparse as sparse
+import torch
 
 
 @dataclass(frozen=True)
@@ -118,6 +120,21 @@ def mean_var_sparse(X, size_factor, q,
     return np.asarray(m), np.asarray(v)
 
 
+def corr_from_cov(cov, var_1, var_2):
+    """Covariance -> correlation on tensors, with the sentinel semantics of
+    ``memento_tpu/ops/estimators.py::corr_from_cov``: an entry whose variance
+    is not positive (or NaN) comes out as **1.0**, not NaN; a NaN covariance
+    stays NaN; everything else is clipped to [-1, 1].  Downstream an observed
+    |corr| == 1 drops its group, while bootstrap replicates with an invalid
+    variance enter the null distribution as 1.0.
+    """
+    invalid = ~(var_1 > 0) | ~(var_2 > 0)  # includes NaN variances
+    one = torch.ones((), dtype=cov.dtype, device=cov.device)
+    corr = cov / torch.sqrt(torch.where(invalid, one, var_1)
+                            * torch.where(invalid, one, var_2))
+    return torch.where(invalid, one, torch.clamp(corr, -1.0, 1.0))
+
+
 __all__ = [
     "NoiseModel",
     "HYPER_RELATIVE",
@@ -130,4 +147,5 @@ __all__ = [
     "mean_var_from_suffstats",
     "suffstats_sparse",
     "mean_var_sparse",
+    "corr_from_cov",
 ]

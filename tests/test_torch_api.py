@@ -2,9 +2,12 @@
 
 Both pipelines run ``setup_memento -> create_groups -> compute_1d_moments ->
 ht_1d_moments -> get_1d_ht_result`` on the same simulated data (the fixture of
-``tests/test_api.py``).  The host stages are float64 and agree to rounding;
-the tests' results agree by name and order, and both detect the planted
-effects.
+``tests/test_api.py``), then ``compute_2d_moments -> ht_2d_moments ->
+get_2d_ht_result`` and ``get_corr_matrix`` on the state that left.  The host
+stages are float64 and agree to rounding (rtol 1e-12 in 1D, 1e-10 for the
+pair covariances); the tests' results agree by name and order (observed
+coefficients rtol 1e-5, SEs within Monte Carlo tolerance), and both detect
+the planted effects.
 """
 
 import numpy as np
@@ -151,3 +154,165 @@ def test_api_refuses_what_is_not_ported(pipelines):
     with pytest.raises(NotImplementedError):
         mtt.ht_1d_moments(port_ad.copy(), covariate=np.ones((4, 1)),
                           treatment=tx, treatment_for_gene={}, device="cpu")
+
+    # the 2D path: each missing option names itself
+    ad = port_ad.copy()
+    genes = list(ad.var.index)
+    mtt.compute_2d_moments(ad, [(genes[0], genes[1]), (genes[2], genes[3])])
+    kw = dict(covariate=np.ones((4, 1)), treatment=tx, num_boot=16,
+              approx=True, device="cpu", verbose=0)
+    for option, match in [
+        (dict(checkpoint_dir="x"), "checkpoint_dir"),
+        (dict(treatment_for_gene={}), "treatment_for_gene"),
+        (dict(mesh=object()), "mesh"),
+        (dict(distributed=True), "distributed"),
+        (dict(sampler="multinomial"), "multinomial"),
+        (dict(sampler="poisson"), "poisson"),
+        (dict(sampler="gaussian"), "gaussian"),
+    ]:
+        with pytest.raises(NotImplementedError, match=match):
+            mtt.ht_2d_moments(ad, **dict(kw, **option))
+    with pytest.raises(NotImplementedError, match="mesh"):
+        mtt.get_corr_matrix(ad, ad.uns["memento"]["groups"][0],
+                            mesh=object(), device="cpu")
+    custom = ad.copy()
+    custom.uns["memento"]["estimator_type"] = (len, len)
+    for call in (
+        lambda: mtt.compute_2d_moments(custom, [(genes[0], genes[1])]),
+        lambda: mtt.ht_2d_moments(custom, **kw),
+        lambda: mtt.get_corr_matrix(custom, custom.uns["memento"]["groups"][0],
+                                    device="cpu"),
+    ):
+        with pytest.raises(NotImplementedError, match="custom"):
+            call()
+    if not torch.cuda.is_available():  # the default device is the card
+        for call in (
+            lambda: mtt.ht_2d_moments(ad, **dict(kw, device=None)),
+            lambda: mtt.get_corr_matrix(ad, ad.uns["memento"]["groups"][0]),
+        ):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call()
+
+
+# ---------------------------------------------------------------------------
+# the 2D path and the correlation matrix
+# ---------------------------------------------------------------------------
+
+
+def _gene_pairs(genes):
+    """Pairs over the tested genes: distinct pairs, one repeated, one
+    reversed, and a gene with itself."""
+    rng = np.random.default_rng(3)
+    a = rng.integers(0, len(genes), 14)
+    b = (a + 1 + rng.integers(0, len(genes) - 1, 14)) % len(genes)
+    pairs = [(genes[i], genes[j]) for i, j in zip(a, b)]
+    return pairs + [pairs[0], pairs[1][::-1], (genes[4], genes[4])]
+
+
+def _run_2d(pkg, adata, n_tx=1, device=None):
+    pkg.compute_2d_moments(adata, _gene_pairs(list(adata.var.index)))
+    groups = pkg.get_groups(adata)
+    covariate = pd.DataFrame(np.ones((len(groups), 1)), index=groups.index,
+                             columns=["intercept"])
+    tx = np.asarray(groups["condition"]).astype(int)
+    treatment = pd.DataFrame({"tx": tx, "rep": np.asarray(
+        groups["replicate"]).astype(int)}, index=groups.index)
+    kw = dict(covariate=covariate, treatment=treatment.iloc[:, :n_tx],
+              num_boot=B, resampling="bootstrap", tile_size=64, verbose=0,
+              seed=4)
+    if device is not None:
+        kw["device"] = device
+    pkg.ht_2d_moments(adata, **kw)
+    return adata
+
+
+@pytest.fixture(scope="module")
+def pipelines_2d(pipelines):
+    jax_ad, port_ad = pipelines
+    return (_run_2d(mt, jax_ad.copy()),
+            _run_2d(mtt, port_ad.copy(), device="cpu"))
+
+
+def test_2d_moments_match(pipelines_2d):
+    jax_ad, port_ad = pipelines_2d
+    j2 = jax_ad.uns["memento"]["2d_moments"]
+    p2 = port_ad.uns["memento"]["2d_moments"]
+    assert set(p2) == set(j2)
+    assert p2["gene_pairs"] == j2["gene_pairs"]
+    for key in ("gene_idx_1", "gene_idx_2"):
+        np.testing.assert_array_equal(p2[key], j2[key])
+    for g in jax_ad.uns["memento"]["groups"]:
+        assert set(p2[g]) == {"cov", "corr", "var_1", "var_2"}
+        for key in p2[g]:
+            np.testing.assert_allclose(p2[g][key], j2[g][key], rtol=1e-10,
+                                       atol=1e-14, err_msg=f"{g} {key}")
+    jm, jc = mt.get_2d_moments(jax_ad)
+    pm, pc = mtt.get_2d_moments(port_ad)
+    assert pc == jc and pm.columns == list(jm.columns)
+    assert list(pm["gene_1"]) == list(jm["gene_1"])
+    assert list(pm["gene_2"]) == list(jm["gene_2"])
+    for col in list(jm.columns)[2:]:
+        np.testing.assert_allclose(pm[col], jm[col].values, rtol=1e-10)
+    for groupby in ("condition", "ALL"):
+        jg = mt.get_2d_moments(jax_ad, groupby=groupby)
+        pg = mtt.get_2d_moments(port_ad, groupby=groupby)
+        assert pg.columns == list(jg.columns)
+        for col in list(jg.columns)[2:]:
+            np.testing.assert_allclose(pg[col], jg[col].values, rtol=1e-10)
+
+
+def test_2d_results_match(pipelines_2d):
+    jax_ad, port_ad = pipelines_2d
+    jax_res = mt.get_2d_ht_result(jax_ad)
+    port_res = mtt.get_2d_ht_result(port_ad)
+    assert port_res.columns == list(jax_res.columns) == [
+        "gene_1", "gene_2", "corr_coef", "corr_se", "corr_pval"]
+    assert list(port_res["gene_1"]) == list(jax_res["gene_1"])
+    assert list(port_res["gene_2"]) == list(jax_res["gene_2"])
+    np.testing.assert_allclose(port_res["corr_coef"],
+                               jax_res["corr_coef"].values, rtol=1e-5,
+                               atol=1e-6, equal_nan=True)
+    n = len(port_res["gene_1"])
+    for res in (port_res, {c: jax_res[c].values for c in jax_res.columns}):
+        for col in ("corr_coef", "corr_se", "corr_pval"):
+            vals = np.asarray(res[col])
+            # the repeated and the reversed pair get their first row's result
+            assert vals[n - 3] == vals[0] and vals[n - 2] == vals[1], col
+            assert np.isnan(vals[n - 1]), col  # a gene with itself
+            assert np.isfinite(vals[:n - 1]).all(), col
+    ok = np.isfinite(port_res["corr_se"])
+    ratio = np.median(port_res["corr_se"][ok] / jax_res["corr_se"].values[ok])
+    assert 0.85 <= ratio <= 1.15
+    pdiff = np.nanmedian(np.abs(port_res["corr_pval"]
+                                - jax_res["corr_pval"].values))
+    assert pdiff <= 0.05
+
+
+def test_2d_multi_column_treatment_warns_and_tests_column_0(pipelines,
+                                                            pipelines_2d):
+    """Both packages warn and report the first treatment column only; with
+    the same seed the port's result equals its one-column run exactly."""
+    jax_ad, port_ad = pipelines
+    with pytest.warns(UserWarning, match="FIRST"):
+        two = _run_2d(mtt, port_ad.copy(), n_tx=2, device="cpu")
+    with pytest.warns(UserWarning, match="FIRST"):
+        _run_2d(mt, jax_ad.copy(), n_tx=2)
+    one = mtt.get_2d_ht_result(pipelines_2d[1])
+    got = mtt.get_2d_ht_result(two)
+    for col in ("corr_coef", "corr_se", "corr_pval"):
+        np.testing.assert_array_equal(got[col], one[col], err_msg=col)
+
+
+def test_get_corr_matrix_matches_jax(pipelines):
+    """Float32 Gram sums on both sides, finished in float64: atol 1e-5, NaN
+    pattern equal, unit diagonal."""
+    jax_ad, port_ad = pipelines
+    for group in jax_ad.uns["memento"]["groups"][:2]:
+        want = mt.get_corr_matrix(jax_ad, group)
+        got = mtt.get_corr_matrix(port_ad, group, device="cpu")
+        assert got.shape == want.shape == (port_ad.n_vars, port_ad.n_vars)
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_allclose(got, want, atol=1e-5, equal_nan=True)
+        assert np.isfinite(got).mean() > 0.9
+        np.testing.assert_allclose(np.diag(got)[np.isfinite(np.diag(got))],
+                                   1.0, atol=1e-4)

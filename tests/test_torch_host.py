@@ -273,6 +273,21 @@ ISOLATED = textwrap.dedent("""
     assert res.columns == ["gene", "tx", "de_coef", "de_se", "de_pval",
                            "dv_coef", "dv_se", "dv_pval"]
     assert np.isfinite(res["de_coef"]).all(), res["de_coef"]
+    genes = list(ad.var.index)
+    mtt.compute_2d_moments(ad, [(genes[0], genes[1]), (genes[2], genes[5]),
+                                (genes[1], genes[0])])
+    mtt.ht_2d_moments(ad, covariate=np.ones((len(groups), 1)),
+                      treatment=groups["condition"][:, None].astype(float),
+                      num_boot=64, approx=True, device="cpu", verbose=0)
+    res2 = mtt.get_2d_ht_result(ad)
+    corr_df, _ = mtt.get_2d_moments(ad)
+    assert res2.columns == ["gene_1", "gene_2", "corr_coef", "corr_se",
+                            "corr_pval"]
+    assert np.isfinite(res2["corr_coef"]).all(), res2["corr_coef"]
+    assert res2["corr_coef"][0] == res2["corr_coef"][2]
+    mat = mtt.get_corr_matrix(ad, groups.index[0], device="cpu")
+    assert mat.shape == (len(genes), len(genes))
+    assert abs(mat[0, 1] - corr_df[groups.index[0]][0]) < 1e-4
     loaded = [m for m in sys.modules if sys.modules[m] is not None
               and m.split(".")[0] in ("jax", "jaxlib", "memento_tpu",
                                       "pandas")]

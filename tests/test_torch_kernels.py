@@ -60,6 +60,7 @@ def test_wrapper_takes_plain_version_for_cpu_tensors(rng):
     want = sampling.fused_bootstrap_sums(counts, w, 500.0, 33, 8)
     assert torch.equal(got, want)
     assert cuda_kernels.LAUNCHES["cascade_bootstrap"] == 0
+    assert not any(cuda_kernels.LAUNCHES_BY_W.values())
 
 
 def test_wrapper_refuses_other_devices():
@@ -69,25 +70,47 @@ def test_wrapper_refuses_other_devices():
             counts, torch.ones(2, 4, 1, device="meta"), 4.0, 8, 0)
 
 
-def test_kernel_matches_plain_on_card(rng, cuda_device):
+def _pair_tile(rng, t, u, n):
+    """Rows shaped like a joint pair compression: a few large zero-zero
+    bins first, then hundreds of bins with counts below 8 (the table
+    branch), so the absorbing last bin is a small one."""
+    counts = np.zeros((t, u), np.float32)
+    for i in range(t):
+        k = rng.integers(u // 2, u)
+        small = rng.integers(1, 8, size=k - 4).astype(np.float32)
+        counts[i, 4:k] = small
+        counts[i, :4] = (n - small.sum()) / 4
+    return counts
+
+
+@pytest.mark.parametrize("w_dim", [1, 2, 5])
+def test_kernel_matches_plain_on_card(rng, cuda_device, w_dim):
     """The kernel against its plain version on the card: exact conservation
-    and the same law at W = 1, 2, 5, including rows longer than 256 bins."""
-    counts = np.concatenate([_tile(rng, t=6, u=300, n=20000),
-                             _tile(rng, t=6, u=300, n=7000)])
+    and the same law, including rows longer than 256 bins.  W = 1 and 2 get
+    the 1D shape (one large bin, counts up to 40); W = 5 gets the 2D shape,
+    dominated by counts below 8."""
+    if w_dim == 5:
+        counts = np.concatenate([_pair_tile(rng, t=6, u=600, n=20000),
+                                 _pair_tile(rng, t=6, u=600, n=7000)])
+        assert ((counts > 0) & (counts < 8)).sum() > 0.9 * (counts > 0).sum()
+    else:
+        counts = np.concatenate([_tile(rng, t=6, u=300, n=20000),
+                                 _tile(rng, t=6, u=300, n=7000)])
     n_rows = torch.tensor(counts.sum(1), device=cuda_device)
     c = torch.tensor(counts, device=cuda_device)
-    for w_dim in (1, 2, 5):
-        w = torch.rand(12, 300, w_dim, device=cuda_device)
-        w[..., 0] = 1.0
-        cuda_kernels.reset_launches()
-        k = cuda_kernels.fused_bootstrap_sums_cuda(c, w, n_rows, 2000, 1)
-        assert cuda_kernels.LAUNCHES["cascade_bootstrap"] == 1
-        p = sampling.fused_bootstrap_sums(c, w, n_rows, 2000, 2)
-        k, p = k.cpu().numpy(), p.cpu().numpy()
-        n = n_rows.cpu().numpy()[:, None]
-        np.testing.assert_allclose(k[:, 0], np.broadcast_to(n, k[:, 0].shape),
-                                   rtol=1e-5)
-        _assert_same_law(p, k)
+    w = torch.rand(*counts.shape, w_dim, device=cuda_device)
+    w[..., 0] = 1.0
+    cuda_kernels.reset_launches()
+    k = cuda_kernels.fused_bootstrap_sums_cuda(c, w, n_rows, 2000, 1)
+    assert cuda_kernels.LAUNCHES["cascade_bootstrap"] == 1
+    assert cuda_kernels.LAUNCHES_BY_W == {
+        w_: int(w_ == w_dim) for w_ in cuda_kernels.SUPPORTED_W}
+    p = sampling.fused_bootstrap_sums(c, w, n_rows, 2000, 2)
+    k, p = k.cpu().numpy(), p.cpu().numpy()
+    n = n_rows.cpu().numpy()[:, None]
+    np.testing.assert_allclose(k[:, 0], np.broadcast_to(n, k[:, 0].shape),
+                               rtol=1e-5)
+    _assert_same_law(p, k)
 
 
 def test_kernel_checks_its_inputs_on_card(cuda_device):
