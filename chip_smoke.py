@@ -21,9 +21,16 @@ Phases, one line each:
       against the pair path's host float64 correlations, and against the CPU
       on the small slice;
   (b) the kernel against its plain PyTorch version on each main path's own
-      tile, B = 2000: W = 1 and W = 2 on the 1D tile, W = 5 on the 2D tile;
+      tile, B = 2000: W = 1 and W = 2 on the 1D tile, W = 5 on the 2D tile,
+      in distribution; then, with the same seed, element by element against
+      the plain version fed from the kernel's own Philox stream
+      (``fused_bootstrap_sums_philox``) on a subsample of rows, B = 256; two
+      launches with one seed bit for bit, and B = 1000 against the first
+      1000 replicates of B = 2000;
   (d) the kernel's time and its plain version's at each main path's tile
-      shape (W = 2 and W = 5), B = 1000 and B = 10000, beside the bound.
+      shape (W = 2 and W = 5), B = 1000 and B = 10000, beside the bound; the
+      wrapper's tensor operations and the launch alone, the launch with the
+      rows longest first and in index order.
 
 Then one JSON line of kernels, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -36,7 +43,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import re
 import subprocess
 import sys
 import time
@@ -60,13 +66,36 @@ SIM_SCALE = 1.0
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 
-# Operations per draw of the cascade kernel, counted from
-# csrc/cascade_bootstrap.cu (each arithmetic instruction one operation).
+# Operations per draw of the cascade kernel (each arithmetic instruction one
+# operation), counted from the first design of csrc/cascade_bootstrap.cu: one
+# Philox call per draw and the CDF rebuilt by every thread.  The kernel has
+# since been redesigned and does less than this (its time has read below
+# this count's bound), but these counts stay unchanged as the common
+# yardstick of every record: ``bound_first_design_ms``.  ``bound_ms`` is the
+# redesigned kernel's own count, below.  Note that PEAK_FP32_S counts a
+# fused multiply-add as two operations and both counts as one: half of such
+# a bound is about the whole FP32 issue rate.
 OPS_PHILOX = 10 * 10 + 8  # 10 rounds of 2 mul.hi, 2 mul.lo, 4 xor, 2 adds
 OPS_GAUSS = 30  # 2 uniforms, log, sqrt, cos, CF term, round, clamp
 OPS_TABLE_FIXED = 20  # uniform, exp, sqrt, trip count, shift, clamp
 OPS_TABLE_STEP = 5  # compare-add, multiply, divide, add
 OPS_PER_WEIGHT = 2  # multiply-add into each of the W sums
+# The redesigned kernel's own counts, from its SASS (loads, branches and
+# address arithmetic not counted): a Philox call serves a group of four bins
+# (one call for its table bins, one for its Gaussian bins), the table draw
+# is a 5-step search of a shared-memory table.
+OPS_PHILOX_CALL = 10 * 4  # 10 rounds of 2 wide multiplies, 2 3-input xors
+OPS_NORMALS = 38  # four uniforms, two Box-Muller pairs (log, sqrt, sin, cos)
+OPS_TABLE_DRAW = 19  # 5 x (compare, add), shift, rescale, shift, clamp
+OPS_GAUSS_DRAW = 11  # sigma, CF term, round, clamp
+# same-seed comparison of the kernel with the plain version on the kernel's
+# Philox stream: limits on the relative differences of the sums.  On the
+# card most sums come out bit-identical (median 0) and at least 99.998% of
+# them within 5e-4 (the rest are sums near zero); a wrong or reused word in
+# one bin of four moves most sums by ~4e-3 and a flipped rounding by ~2e-5.
+SAME_SEED_MEDIAN = 1e-6
+SAME_SEED_WITHIN = 5e-4
+SAME_SEED_SHARE = 0.999
 
 
 def log(msg: str) -> None:
@@ -308,11 +337,55 @@ def cascade_work(counts: np.ndarray, w_dim: int, num_boot: int):
     return nbytes, float(per_boot) * num_boot
 
 
-def bound(counts, w_dim, num_boot):
-    nbytes, ops = cascade_work(counts, w_dim, num_boot)
+def cascade_work_redesign(counts: np.ndarray, w_dim: int, num_boot: int):
+    """(bytes, operations) of the redesigned kernel on these inputs: the
+    bytes of ``cascade_work``, the operations by the ``OPS_*`` counts of the
+    redesign, with one Philox call per group of four bins and branch."""
+    t_dim, u_dim = counts.shape
+    nbytes, _ = cascade_work(counts, w_dim, num_boot)
+    c = np.pad(counts, ((0, 0), (0, (-u_dim) % 4)))
+    ctail = np.cumsum(c[:, ::-1], axis=1)[:, ::-1]
+    occupied = c > 0
+    drawn = occupied & ~(c >= ctail)
+    gauss = (drawn & (c >= 8.0)).reshape(t_dim, -1, 4)
+    table = (drawn & (c < 8.0)).reshape(t_dim, -1, 4)
+    per_boot = (table.any(2).sum() * OPS_PHILOX_CALL
+                + gauss.any(2).sum() * (OPS_PHILOX_CALL + OPS_NORMALS)
+                + table.sum() * OPS_TABLE_DRAW + gauss.sum() * OPS_GAUSS_DRAW
+                + occupied.sum() * (OPS_PER_WEIGHT * w_dim + 1))
+    return nbytes, float(per_boot) * num_boot
+
+
+def bound(nbytes: float, ops: float):
+    """The least time in ms for this work, and what bounds it."""
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
+
+
+def same_seed_check(cuda_kernels, sampling, counts, weights, n_rows, seed,
+                    label):
+    """The kernel against the plain version on the kernel's own Philox
+    stream, element by element: a sum may differ by float32 rounding and by
+    a few Gaussian draws whose rounding to an integer flipped (1/N of a sum
+    each, ~2e-5 here); a word used twice or skipped would move a sum by
+    ~1/sqrt(N) = 4e-3 and fail the share."""
+    import torch
+
+    k = cuda_kernels.fused_bootstrap_sums_cuda(counts, weights, n_rows, 256,
+                                               seed)
+    p = sampling.fused_bootstrap_sums_philox(counts, weights, n_rows, 256,
+                                             seed)
+    torch.cuda.synchronize()
+    rel = (k - p).abs() / p.abs().clamp_min(1e-6)
+    median = float(rel.median())
+    share = float((rel <= SAME_SEED_WITHIN).float().mean())
+    if not (median <= SAME_SEED_MEDIAN and share >= SAME_SEED_SHARE):
+        raise AssertionError(
+            f"{label}: same-seed median rel. diff {median:.3g} (limit "
+            f"{SAME_SEED_MEDIAN}), share within {SAME_SEED_WITHIN} "
+            f"{share:.4f} (limit {SAME_SEED_SHARE})")
+    return median, share, float(rel.max())
 
 
 def time_ms(fn, reps: int) -> float:
@@ -392,13 +465,19 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_build.build()
     build_s = time.perf_counter() - t0
-    ptxas = kernel_build.BUILD_LOG.get("cascade_bootstrap", "")
-    regs = re.findall(r"Used (\d+) registers", ptxas)
-    spills = re.findall(r"(\d+) bytes spill stores", ptxas)
-    ptxas = (f"registers per W instance {'/'.join(regs)}, "
-             f"spill bytes {'/'.join(spills)}")
+    ptxas = cuda_kernels.cascade_ptxas()
+    instances = {}
+    for w_dim in cuda_kernels.SUPPORTED_W:
+        if w_dim not in ptxas:
+            raise AssertionError(f"no ptxas report for the W={w_dim} instance")
+        instances[w_dim] = {**ptxas[w_dim],
+                            **cuda_kernels.cascade_resources(w_dim)}
+        if ptxas[w_dim]["spill_store_bytes"] or \
+                ptxas[w_dim]["spill_load_bytes"]:
+            raise AssertionError(f"W={w_dim} instance spills: {ptxas[w_dim]}")
     log(f"(a) card: {card} | torch {torch.__version__} cuda "
-        f"{torch.version.cuda} | build {build_s:.2f} s | ptxas: {ptxas}")
+        f"{torch.version.cuda} | build {build_s:.2f} s | ptxas and runtime, "
+        f"per W instance: {json.dumps(instances)}")
 
     # ---- (c) the 1D main path ---------------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -572,7 +651,7 @@ def main() -> int:
     }
     if int((counts_np > 0).sum(1).max()) <= 256:
         raise AssertionError("no 1D row with U > 256")
-    max_err, shapes = {}, {}
+    max_err, shapes, same_seed = {}, {}, {}
     for tile_w, check_w in ((2, (1, 2)), (5, (5,))):
         counts, weights, _ = tiles[tile_w]
         t_dim, u_dim = counts.shape
@@ -588,6 +667,16 @@ def main() -> int:
         n_rows = counts_b.sum(1)
         cons_tol = conservation_limit(float(n_rows.max()), int(occupied.max()))
         max_err[tile_w], dist = 0.0, None
+        # same-seed subsample: at most ~128 rows, the main path's own
+        # weights; it must hold rows that end inside a group of four bins
+        sub = slice(0, None, max(1, t_dim // 128))
+        counts_s = counts[sub].contiguous()
+        n_rows_s = counts_s.sum(1)
+        ragged = int(((counts_s > 0).sum(1) % 4 != 0).sum())
+        if ragged == 0:
+            raise AssertionError("same-seed subsample has no row whose end "
+                                 "is not a multiple of 4")
+        same_seed[tile_w] = {}
         for w_dim in check_w:
             w_b = weights[::step, :, :w_dim].clone()
             w_b[..., 0] = 1.0  # weight 1: the resample's total
@@ -602,7 +691,22 @@ def main() -> int:
                 cons_tol, f"W={w_dim}")
             max_err[tile_w] = max(max_err[tile_w], err)
             dist = (wm, ws)
-            del k, pl
+            # one seed, one result: launched again, and asked for half
+            again = cuda_kernels.fused_bootstrap_sums_cuda(
+                counts_b, w_b, n_rows, 2000, args.seed + 11)
+            half = cuda_kernels.fused_bootstrap_sums_cuda(
+                counts_b, w_b, n_rows, 1000, args.seed + 11)
+            if not torch.equal(k, again):
+                raise AssertionError(f"W={w_dim}: two launches with one seed "
+                                     "differ")
+            if not torch.equal(half, k[..., :1000]):
+                raise AssertionError(f"W={w_dim}: B=1000 is not the first "
+                                     "1000 replicates of B=2000")
+            del k, pl, again, half
+            same_seed[tile_w][w_dim] = same_seed_check(
+                cuda_kernels, sampling, counts_s,
+                weights[sub, :, :w_dim].contiguous(), n_rows_s,
+                args.seed + 13, f"W={w_dim}")
         log(f"(b) cascade_bootstrap vs plain on the "
             f"{'1D' if tile_w == 2 else '2D'} main path tile [{t_dim} rows x "
             f"{u_dim} bins, max occupied {int(occupied.max())}, mean occupied "
@@ -611,10 +715,16 @@ def main() -> int:
             f"W in {check_w}, B=2000: conservation max "
             f"|kernel - plain| {max_err[tile_w]:.4g} (limit "
             f"{cons_tol:.3g}); W={check_w[-1]} mean dev "
-            f"{dist[0]:.3f} sd, sd ratio dev {dist[1]:.3f} (limits 0.15)")
+            f"{dist[0]:.3f} sd, sd ratio dev {dist[1]:.3f} (limits 0.15) | "
+            f"relaunch and B=1000-of-2000 bit-identical | same seed vs plain "
+            f"on the kernel's Philox stream [{counts_s.shape[0]} rows, "
+            f"{ragged} ending inside a group, B=256] (median rel. diff, share "
+            f"within {SAME_SEED_WITHIN}, max) by W: "
+            f"{json.dumps(same_seed[tile_w])} (limits {SAME_SEED_MEDIAN}, "
+            f"{SAME_SEED_SHARE})")
 
     # ---- (d) times at each main path's tile shape --------------------------
-    timings = {}
+    timings, wrapper_parts = {}, {}
     for tile_w in (2, 5):
         counts, weights, n_obs = tiles[tile_w]
         counts_host = counts.cpu().numpy()
@@ -628,14 +738,37 @@ def main() -> int:
                     3 * 10 * timings[tile_w, NUM_BOOT][1] < 60e3:
                 plain_ms = time_ms(lambda: sampling.fused_bootstrap_sums(
                     counts, weights, n_obs, num_boot, 7), reps=2)
-            bound_ms, bound_by = bound(counts_host, tile_w, num_boot)
+            first_ms, _ = bound(*cascade_work(counts_host, tile_w, num_boot))
+            bound_ms, bound_by = bound(*cascade_work_redesign(
+                counts_host, tile_w, num_boot))
+            if ms < bound_ms:
+                raise AssertionError(f"W={tile_w} B={num_boot}: {ms} ms is "
+                                     f"below the bound of {bound_ms} ms")
             timings[tile_w, num_boot] = (ms, plain_ms, bound_ms, bound_by)
+            # the wrapper's parts: its tensor operations, and the launch
+            # alone with the rows longest first and in index order (each
+            # launch variant twice, in turns)
+            first = cuda_kernels.cascade_inputs(counts)
+            index = cuda_kernels.cascade_inputs(counts, longest_first=False)
+            parts = {"inputs_ms": time_ms(
+                lambda: cuda_kernels.cascade_inputs(counts), reps=10)}
+            for name, inputs in (("launch_ms", first),
+                                 ("launch_index_order_ms", index)) * 2:
+                t = time_ms(lambda: cuda_kernels.launch_cascade(
+                    counts, weights, n_obs, inputs, num_boot, 7), reps=10)
+                parts[name] = min(t, parts.get(name, t))
+            parts["bound_first_design_ms"] = first_ms
+            wrapper_parts[tile_w, num_boot] = parts
             plain_txt = "not timed (over a minute)" if plain_ms is None \
                 else f"{plain_ms:.3f} ms"
             log(f"(d) cascade_bootstrap B={num_boot} [{counts.shape[0]} x "
-                f"{counts.shape[1]}, W={tile_w}]: kernel {ms:.3f} ms | plain "
-                f"{plain_txt} | bound {bound_ms:.4f} ms ({bound_by}) | "
-                f"{card}")
+                f"{counts.shape[1]}, W={tile_w}]: kernel {ms:.3f} ms "
+                f"(tensor operations before the launch "
+                f"{parts['inputs_ms']:.3f}, launch {parts['launch_ms']:.3f}, "
+                f"launch in index order "
+                f"{parts['launch_index_order_ms']:.3f}) | plain "
+                f"{plain_txt} | bound {bound_ms:.4f} ms ({bound_by}; by the "
+                f"first design's count {first_ms:.4f} ms) | {card}")
 
     def numbers(tile_w, launches):
         ms, plain_ms, bound_ms, bound_by = timings[tile_w, NUM_BOOT]
@@ -649,7 +782,10 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": None,
             "shape": shapes[tile_w],
-            "B10000": {"ms": ms10, "plain_ms": plain10, "bound_ms": bound10},
+            **wrapper_parts[tile_w, NUM_BOOT],
+            "same_seed": same_seed[tile_w],
+            "B10000": {"ms": ms10, "plain_ms": plain10, "bound_ms": bound10,
+                       **wrapper_parts[tile_w, 10_000]},
         }
 
     # one kernel, two uses: the top-level numbers are those of the 1D path's

@@ -8,6 +8,13 @@ kernel or raises.  ``LAUNCHES`` counts kernel launches, so a run can show
 that its main path went through the kernel; ``LAUNCHES_BY_W`` splits the
 same count by the number of weights W (2 or 1 from the 1D test, 5 from the
 2D test).
+
+What depends on the counts alone stays plain tensor operations here, as the
+JAX package computes them outside its Pallas call (``cascade_inputs``): the
+conditional ratios and tail sums, each row's last occupied bin, and the order
+in which the blocks take the rows (longest first, so that the last wave of
+blocks does not wait for one long row).  ``launch_cascade`` is the launch
+alone.
 """
 
 from __future__ import annotations
@@ -34,10 +41,74 @@ def _cascade_library():
     fn = lib.cascade_bootstrap_launch
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
+        fn.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong, p]
         fn.restype = ctypes.c_int
-    return fn
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.cascade_bootstrap_resources.argtypes = [ctypes.c_int, ip, ip, ip]
+        lib.cascade_bootstrap_resources.restype = ctypes.c_int
+    return lib
+
+
+def cascade_ptxas() -> dict:
+    """What ptxas reported for each instance when the library was built,
+    keyed by W: ``{"registers", "spill_store_bytes", "spill_load_bytes"}``."""
+    kernel_build.build(["cascade_bootstrap"])
+    usage = kernel_build.ptxas_usage(
+        kernel_build.BUILD_LOG.get("cascade_bootstrap", ""))
+    return {w: use for w in SUPPORTED_W for entry, use in usage.items()
+            if f"ILi{w}E" in entry}
+
+
+def cascade_resources(w_dim: int) -> dict:
+    """Registers per thread, shared memory per block and resident blocks per
+    SM of the kernel's instance for ``w_dim`` weights, from the runtime."""
+    regs, shared, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = _cascade_library().cascade_bootstrap_resources(
+        w_dim, ctypes.byref(regs), ctypes.byref(shared), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"cascade_bootstrap_resources: cudaError {rc}")
+    return {"registers": regs.value, "shared_bytes": shared.value,
+            "blocks_per_sm": blocks.value}
+
+
+def cascade_inputs(counts, longest_first: bool = True):
+    """What the kernel needs of ``counts [T, U]`` beside them, as plain
+    tensor operations with no host synchronisation: ``(ratio, ctail, u_end,
+    order)``.  ``u_end [T]`` int32 is 1 + the last occupied bin (0 for an
+    empty row); ``order [T]`` int32 is the rows by falling ``u_end``, or in
+    index order if ``longest_first`` is false (for timing the difference)."""
+    t_dim, u_dim = counts.shape
+    ctail, ratio = (x.contiguous() for x in sampling.conditional_ratios(counts))
+    bins = torch.arange(1, u_dim + 1, dtype=torch.int32, device=counts.device)
+    u_end = torch.where(counts > 0, bins, torch.zeros_like(bins)).amax(dim=1)
+    u_end = u_end.to(torch.int32).contiguous()
+    if longest_first:
+        order = torch.argsort(u_end, descending=True).to(torch.int32)
+    else:
+        order = torch.arange(t_dim, dtype=torch.int32, device=counts.device)
+    return ratio, ctail, u_end, order.contiguous()
+
+
+def launch_cascade(counts, weights, n_rows, inputs, num_boot: int, seed: int):
+    """Launch the kernel on validated CUDA tensors; ``inputs`` is
+    ``cascade_inputs(counts)``.  Returns sums ``[T, W, B]``."""
+    ratio, ctail, u_end, order = inputs
+    t_dim, u_dim = counts.shape
+    w_dim = weights.shape[-1]
+    out = torch.empty((t_dim, w_dim, num_boot), dtype=torch.float32,
+                      device=counts.device)
+    launch = _cascade_library().cascade_bootstrap_launch
+    stream = torch.cuda.current_stream(counts.device).cuda_stream
+    rc = launch(counts.data_ptr(), ratio.data_ptr(), ctail.data_ptr(),
+                weights.data_ptr(), n_rows.data_ptr(), u_end.data_ptr(),
+                order.data_ptr(), out.data_ptr(), t_dim, u_dim, w_dim,
+                num_boot, int(seed) & ((1 << 64) - 1), stream)
+    if rc != 0:
+        raise RuntimeError(f"cascade_bootstrap launch failed: cudaError {rc}")
+    LAUNCHES["cascade_bootstrap"] += 1
+    LAUNCHES_BY_W[w_dim] += 1
+    return out
 
 
 def fused_bootstrap_sums_cuda(counts, weights, n_obs, num_boot: int,
@@ -66,36 +137,20 @@ def fused_bootstrap_sums_cuda(counts, weights, n_obs, num_boot: int,
         raise ValueError("counts and weights must be on the same device")
     if not (counts.is_contiguous() and weights.is_contiguous()):
         raise ValueError("counts and weights must be contiguous")
-    t_dim, u_dim = counts.shape
+    t_dim = counts.shape[0]
     w_dim = weights.shape[-1]
     if w_dim not in SUPPORTED_W:
         raise ValueError(f"W={w_dim} not in {SUPPORTED_W}")
     n_rows = torch.broadcast_to(
         torch.as_tensor(n_obs, dtype=torch.float32, device=counts.device),
         (t_dim,)).contiguous()
-
-    out = torch.empty((t_dim, w_dim, num_boot), dtype=torch.float32,
-                      device=counts.device)
     if t_dim == 0 or num_boot == 0:
-        return out
-    ctail, ratio = (x.contiguous() for x in sampling.conditional_ratios(counts))
-    bins = torch.arange(1, u_dim + 1, dtype=torch.int32, device=counts.device)
-    u_end = torch.where(counts > 0, bins, torch.zeros_like(bins)).amax(dim=1)
-    u_end = u_end.to(torch.int32).contiguous()
-
-    launch = _cascade_library()
-    stream = torch.cuda.current_stream(counts.device).cuda_stream
-    rc = launch(counts.data_ptr(), ratio.data_ptr(),
-                ctail.data_ptr(), weights.data_ptr(),
-                n_rows.data_ptr(), u_end.data_ptr(), out.data_ptr(),
-                t_dim, u_dim, w_dim, num_boot,
-                int(seed) & ((1 << 64) - 1), stream)
-    if rc != 0:
-        raise RuntimeError(f"cascade_bootstrap launch failed: cudaError {rc}")
-    LAUNCHES["cascade_bootstrap"] += 1
-    LAUNCHES_BY_W[w_dim] += 1
-    return out
+        return torch.empty((t_dim, w_dim, num_boot), dtype=torch.float32,
+                           device=counts.device)
+    return launch_cascade(counts, weights, n_rows, cascade_inputs(counts),
+                          num_boot, seed)
 
 
-__all__ = ["fused_bootstrap_sums_cuda", "LAUNCHES", "LAUNCHES_BY_W",
+__all__ = ["fused_bootstrap_sums_cuda", "cascade_inputs", "launch_cascade",
+           "cascade_resources", "cascade_ptxas", "LAUNCHES", "LAUNCHES_BY_W",
            "reset_launches"]

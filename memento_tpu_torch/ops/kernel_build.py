@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` compiles, at first use and from the package's own
 sources, into ``_build/lib<name>-<hash>.so`` with a plain C interface
 (``-gencode arch=compute_90a,code=sm_90a``, Hopper).  The hash is that of
 the source, so an edited kernel is rebuilt and a stale library is never
-loaded.  ``build()`` starts one ``nvcc`` per source at once and waits for
-all of them.  Nothing here runs at import time.
+loaded; ``nvcc``'s output (the ptxas report) is kept beside the library.
+``build()`` starts one ``nvcc`` per source at once and waits for all of
+them.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -57,6 +59,9 @@ def build(names=None) -> dict:
     for name in names:
         lib = library_path(name)
         if lib.exists():
+            log = lib.with_suffix(".log")
+            if name not in BUILD_LOG and log.exists():
+                BUILD_LOG[name] = log.read_text()
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
@@ -71,10 +76,30 @@ def build(names=None) -> dict:
         if proc.returncode != 0:
             failures.append(f"{name}: nvcc exit {proc.returncode}\n{err}")
             continue
+        lib.with_suffix(".log").write_text(BUILD_LOG[name])
         os.replace(tmp, lib)  # atomic: a concurrent loader sees all or none
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return {name: library_path(name) for name in names}
+
+
+def ptxas_usage(log: str) -> dict:
+    """What ``ptxas -v`` reported for each kernel entry in an ``nvcc`` log:
+    ``{mangled entry name: {"registers", "spill_store_bytes",
+    "spill_load_bytes"}}``."""
+    usage = {}
+    for entry, body in re.findall(
+            r"Compiling entry function '(\S+?)'(.*?)(?=Compiling entry|\Z)",
+            log, flags=re.S):
+        regs = re.search(r"Used (\d+) registers", body)
+        stores = re.search(r"(\d+) bytes spill stores", body)
+        loads = re.search(r"(\d+) bytes spill loads", body)
+        usage[entry] = {
+            "registers": int(regs.group(1)) if regs else None,
+            "spill_store_bytes": int(stores.group(1)) if stores else None,
+            "spill_load_bytes": int(loads.group(1)) if loads else None,
+        }
+    return usage
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -87,5 +112,5 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-__all__ = ["build", "load", "library_path", "kernel_names", "BUILD_DIR",
-           "BUILD_LOG"]
+__all__ = ["build", "load", "library_path", "kernel_names", "ptxas_usage",
+           "BUILD_DIR", "BUILD_LOG"]

@@ -17,6 +17,9 @@ every replicate conserves its total exactly.
 This is the plain PyTorch version of the CUDA kernel in
 ``csrc/cascade_bootstrap.cu``: the CPU path, and what the kernel is held
 against on the card.  Padded bins (count 0) draw 0.
+``fused_bootstrap_sums`` takes its random numbers from a ``torch.Generator``;
+``fused_bootstrap_sums_philox`` is the same cascade on the kernel's own
+Philox stream (``ops/philox.py``), for comparing the two draw by draw.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..device import generator
+from . import philox
 
 CASCADE_TAU = 8.0
 CASCADE_K = 32  # table support: P[Poisson(8) > 32] < 4e-12
@@ -55,11 +59,13 @@ def conditional_ratios(counts):
     return ctail, ratio
 
 
-def _approx_binomial_step(gen, remaining, expected_remaining, ratio, lam0,
-                          cdf, tau=CASCADE_TAU):
+def _approx_binomial_step(z, u01, remaining, expected_remaining, ratio,
+                          lam0, cdf, tau=CASCADE_TAU):
     """One conditional-binomial draw of the cascade for every replicate.
 
     Args:
+      z, u01: ``[..., B]`` standard normals (Gaussian branch) and uniforms
+        (table branch).
       remaining: ``[..., B]`` trials left.
       expected_remaining: ``[...]`` tail count sum (E[remaining] here).
       ratio: ``[...]`` conditional success probability of this bin.
@@ -78,13 +84,11 @@ def _approx_binomial_step(gen, remaining, expected_remaining, ratio, lam0,
     gam = 1.0 - 2.0 * r
     s = torch.sqrt(torch.clamp_min(
         m * (1.0 - r) - gam * gam / 18.0 - 1.0 / 12.0, 0.0))
-    z = torch.randn(remaining.shape, generator=gen, device=remaining.device)
     g = torch.clamp(torch.round(m + s * z + gam * (z * z - 1.0) / 6.0),
                     min=torch.zeros_like(remaining), max=remaining)
     # Poisson-table branch: invert the CDF with one uniform (the count of
     # table entries below it), rescale the centred draw to the conditional
     # binomial's variance and add the conditional-mean shift.
-    u01 = torch.rand(remaining.shape, generator=gen, device=remaining.device)
     t = torch.searchsorted(cdf.contiguous(), u01.contiguous()).to(
         remaining.dtype)
     lam = lam0[..., None]
@@ -95,6 +99,35 @@ def _approx_binomial_step(gen, remaining, expected_remaining, ratio, lam0,
     draws = torch.where((lam0 < tau)[..., None], t, g)
     draws = torch.where(r >= 1.0 - 1e-6, remaining, draws)
     return torch.where(r <= 0.0, torch.zeros_like(draws), draws)
+
+
+def _cascade_sums(counts, weights, n_obs, num_boot: int, randoms):
+    """The cascade over the bins; ``randoms(u, lam0)`` gives bin ``u``'s
+    normals and uniforms ``[..., B]`` (``lam0``: the bin's counts)."""
+    counts = torch.as_tensor(counts, dtype=torch.float32)
+    dev = counts.device
+    weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+    batch = counts.shape[:-1]
+    n_rows = torch.broadcast_to(
+        torch.as_tensor(n_obs, dtype=torch.float32, device=dev), batch)
+
+    ctail, ratio = conditional_ratios(counts)
+    cdf = poisson_cdf_table(counts)  # [..., U, K]
+
+    remaining = n_rows[..., None].expand(*batch, num_boot).clone()
+    sums = torch.zeros(*batch, weights.shape[-1], num_boot,
+                       dtype=torch.float32, device=dev)
+    # bins past the last occupied one draw exactly 0 in every row
+    occupied = (counts > 0).reshape(-1, counts.shape[-1]).any(0)
+    n_bins = int(occupied.nonzero().max()) + 1 if bool(occupied.any()) else 0
+    for u in range(n_bins):
+        z, u01 = randoms(u, counts[..., u])
+        n_u = _approx_binomial_step(z, u01, remaining, ctail[..., u],
+                                    ratio[..., u], counts[..., u],
+                                    cdf[..., u, :])
+        sums += weights[..., u, :, None] * n_u[..., None, :]
+        remaining = remaining - n_u
+    return sums
 
 
 def fused_bootstrap_sums(counts, weights, n_obs, num_boot: int, seed: int):
@@ -111,29 +144,50 @@ def fused_bootstrap_sums(counts, weights, n_obs, num_boot: int, seed: int):
       sums ``[..., W, B]`` float32 on ``counts.device``.
     """
     counts = torch.as_tensor(counts, dtype=torch.float32)
+    gen = generator(seed, counts.device)
+    shape = (*counts.shape[:-1], num_boot)
+
+    def randoms(u, lam0):
+        return (torch.randn(shape, generator=gen, device=counts.device),
+                torch.rand(shape, generator=gen, device=counts.device))
+
+    return _cascade_sums(counts, weights, n_obs, num_boot, randoms)
+
+
+def fused_bootstrap_sums_philox(counts, weights, n_obs, num_boot: int,
+                                seed: int):
+    """``fused_bootstrap_sums`` for ``counts [T, U]`` with the random numbers
+    of ``csrc/cascade_bootstrap.cu``: draw (row, bin, replicate) takes the
+    Philox words that ``ops/philox.py`` allocates to it, keyed by ``seed``.
+    The first B replicates are the same whatever ``num_boot`` is."""
+    counts = torch.as_tensor(counts, dtype=torch.float32)
+    if counts.dim() != 2:
+        raise ValueError(f"expected counts [T, U]; got {tuple(counts.shape)}")
     dev = counts.device
-    weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
-    batch = counts.shape[:-1]
-    n_rows = torch.broadcast_to(
-        torch.as_tensor(n_obs, dtype=torch.float32, device=dev), batch)
+    rows = torch.arange(counts.shape[0], device=dev)[:, None]
+    reps = torch.arange(num_boot, device=dev)[None, :]
+    group = {}
 
-    ctail, ratio = conditional_ratios(counts)
-    cdf = poisson_cdf_table(counts)  # [..., U, K]
-    gen = generator(seed, dev)
+    def randoms(u, lam0):
+        g, j = divmod(u, philox.GROUP)
+        if group.get("index") != g:
+            group.update(index=g, normals=None, uniforms=None)
+        # a call is made only where some row of the group's bin needs it
+        if bool((lam0 >= CASCADE_TAU).any()):
+            if group["normals"] is None:
+                group["normals"] = philox.group_normals(rows, g, reps, seed)
+            z = group["normals"][..., j]
+        else:
+            z = torch.zeros(counts.shape[0], num_boot, device=dev)
+        if bool(((lam0 > 0) & (lam0 < CASCADE_TAU)).any()):
+            if group["uniforms"] is None:
+                group["uniforms"] = philox.group_uniforms(rows, g, reps, seed)
+            u01 = group["uniforms"][..., j]
+        else:
+            u01 = torch.full((counts.shape[0], num_boot), 0.5, device=dev)
+        return z, u01
 
-    remaining = n_rows[..., None].expand(*batch, num_boot).clone()
-    sums = torch.zeros(*batch, weights.shape[-1], num_boot,
-                       dtype=torch.float32, device=dev)
-    # bins past the last occupied one draw exactly 0 in every row
-    occupied = (counts > 0).reshape(-1, counts.shape[-1]).any(0)
-    n_bins = int(occupied.nonzero().max()) + 1 if bool(occupied.any()) else 0
-    for u in range(n_bins):
-        n_u = _approx_binomial_step(gen, remaining, ctail[..., u],
-                                    ratio[..., u], counts[..., u],
-                                    cdf[..., u, :])
-        sums += weights[..., u, :, None] * n_u[..., None, :]
-        remaining = remaining - n_u
-    return sums
+    return _cascade_sums(counts, weights, n_obs, num_boot, randoms)
 
 
 __all__ = [
@@ -142,4 +196,5 @@ __all__ = [
     "poisson_cdf_table",
     "conditional_ratios",
     "fused_bootstrap_sums",
+    "fused_bootstrap_sums_philox",
 ]
