@@ -7,12 +7,16 @@ Run from the repository root on a machine with one NVIDIA GPU (Hopper):
 
 Phases, one line each:
 
-  (a) the card and the kernel build (``nvcc``, from ``memento_tpu_torch/csrc``);
+  (a) the card and the builds: the kernel (``nvcc``, from
+      ``memento_tpu_torch/csrc``) and, at the same time, the native host
+      library (``g++``, from ``memento_tpu_torch/native``);
   (c) the 1D main path through the public API at the published runtime scale:
       200,000 cells x 1,024 genes, 2 conditions x 2 replicates,
       ``hyper_relative``, bootstrap resampling with GEV tail refinement,
-      B = 1000, a 1.6x mean effect planted on 64 genes; then the same API on
-      a small slice on the card and on the CPU (plain path) for agreement;
+      B = 1000, a 1.6x mean effect planted on 64 genes, its host stages
+      through the native layer (the call counts must show it); then the same
+      API on a small slice on the card and on the CPU (plain path) for
+      agreement;
   (e) the 2D main path (differential correlation) on the state (c) left:
       512 unordered gene pairs over the genes that passed the filter, same
       options, a correlation planted on 64 of the pairs in condition 1 only;
@@ -20,6 +24,12 @@ Phases, one line each:
   (f) ``get_corr_matrix`` for one group of 50,000 cells on the card, held
       against the pair path's host float64 correlations, and against the CPU
       on the small slice;
+  (g) the native host layer against its plain numpy/scipy version at full
+      scale on the card's host, both timed: the group packer on each of
+      (c)'s groups (the same combos per gene), the pair packer on (e)'s pairs
+      (slot for slot), the sufficient statistics (CSR and CSC), the size
+      factors (total and masked), the observed mean and the pair products of
+      ``cov_sparse_pairs`` (rtol 1e-12);
   (b) the kernel against its plain PyTorch version on each main path's own
       tile, B = 2000: W = 1 and W = 2 on the 1D tile, W = 5 on the 2D tile,
       in distribution; then, with the same seed, element by element against
@@ -46,6 +56,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -438,6 +449,115 @@ def check_distribution(k, p, n_rows, cons_tol, label):
     return err, worst_mean, worst_sd
 
 
+NATIVE_1D = ("row_sums_csr", "suffstats_csr", "col_sums_csr",
+             "suffstats_csc", "compress_group_range")
+NATIVE_2D = ("pair_prods_csc", "compress_pairs")
+
+
+def check_native_calls(native, names, label):
+    calls = dict(native.CALLS)
+    missing = [n for n in names if calls[n] <= 0]
+    if missing:
+        raise AssertionError(f"{label} took no native pass for {missing}: "
+                             f"{calls}")
+    return {n: c for n, c in calls.items() if c}
+
+
+def canonical_rows(c):
+    """A group tile's fields with each row's combos sorted by (value, bin),
+    padding last: the native packer keeps nonzero combos in first-seen
+    order, the numpy packer in code order."""
+    key = c.values.astype(np.float64) * 256.0 + c.sf_bin
+    key[np.arange(c.padded_u)[None, :] >= c.n_unique[:, None]] = np.inf
+    order = np.argsort(key, axis=1, kind="stable")
+    return {f: np.take_along_axis(getattr(c, f), order, axis=1)
+            for f in ("values", "counts", "inv_sf", "sf_bin")}
+
+
+def host_clock(fn, *a, **kw):
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    return out, time.perf_counter() - t0
+
+
+def native_against_plain(adata, idx1, idx2):
+    """Phase (g): each native entry of the main paths against its plain
+    version on the main paths' own inputs, with the seconds of both."""
+    from memento_tpu_torch import api
+    from memento_tpu_torch.ops import corr, estimators, size_factor
+    from memento_tpu_torch.ops.compress import compress_group, compress_pairs
+
+    uns = adata.uns["memento"]
+    secs = {}
+
+    def both(name, native_fn, plain_fn):
+        a, ta = host_clock(native_fn)
+        b, tb = host_clock(plain_fn)
+        secs[name] = {"native_s": round(ta, 4), "plain_s": round(tb, 4)}
+        return a, b
+
+    for r, grp in enumerate(uns["groups"]):
+        cells, asf = uns["group_cells"][grp], uns["approx_size_factor"][grp]
+        fresh = cells.copy()  # no cached prep: as the main path's first call
+        got, want = both(f"compress_group[{r}]",
+                         lambda: compress_group(fresh, asf, backend="native"),
+                         lambda: compress_group(cells, asf, backend="numpy"))
+        if not np.array_equal(got.n_unique, want.n_unique) \
+                or got.padded_u != want.padded_u:
+            raise AssertionError(f"group {grp}: n_unique or U differ")
+        g_rows, w_rows = canonical_rows(got), canonical_rows(want)
+        for f in g_rows:
+            if not np.array_equal(g_rows[f], w_rows[f]):
+                raise AssertionError(f"group {grp}: combos differ in {f}")
+        got, want = both(
+            f"compress_pairs[{r}]",
+            lambda: compress_pairs(fresh, asf, idx1, idx2, backend="native"),
+            lambda: compress_pairs(cells, asf, idx1, idx2, backend="numpy"))
+        for f in ("values_1", "values_2", "counts", "inv_sf", "inv_sf_sq",
+                  "n_unique", "sf_bin", "bin_inv_sf"):
+            if not np.array_equal(getattr(got, f), getattr(want, f)):
+                raise AssertionError(f"group {grp}: pair tiles differ in {f}")
+
+    def close(name, pair):
+        got, want = (x if isinstance(x, tuple) else (x,) for x in pair)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a, b, rtol=1e-12, err_msg=name)
+
+    X = adata.X
+    # the plain versions read float64: scipy sums float32 data in float32
+    X64 = X.astype(np.float64).tocsc()
+    sf = np.asarray(adata.obs["memento_size_factor"])
+    grp = uns["groups"][0]
+    cells, cells_sf = uns["group_cells"][grp], uns["size_factor"][grp]
+    mask = np.isin(np.asarray(adata.var.index), uns["least_variable_genes"])
+    close("suffstats csr", both(
+        "suffstats_sparse[csr]", lambda: estimators.suffstats_sparse(X, sf),
+        lambda: estimators.suffstats_scipy(X, sf)))
+    close("suffstats csc", both(
+        "suffstats_sparse[csc]",
+        lambda: estimators.suffstats_sparse(cells, cells_sf),
+        lambda: estimators.suffstats_scipy(cells, cells_sf)))
+    close("size factor total", both(
+        "estimate_size_factor[total]",
+        lambda: size_factor.estimate_size_factor(X, total=True),
+        lambda: size_factor.estimate_size_factor(X64, total=True)))
+    close("size factor masked", both(
+        "estimate_size_factor[mask]",
+        lambda: size_factor.estimate_size_factor(X, mask=mask),
+        lambda: size_factor.estimate_size_factor(X64, mask=mask)))
+    # scipy's mean scales before it sums (1e-12 apart); the plain column
+    # sums of integer counts over the cell count are exact
+    close("obs mean", both(
+        "_obs_mean", lambda: api._obs_mean(X),
+        lambda: np.asarray(X64.sum(axis=0)).ravel() / X64.shape[0]))
+    w2 = (1.0 / cells_sf) ** 2
+    close("pair products", both(
+        "cov_sparse_pairs.pair_prods",
+        lambda: corr.pair_prods(cells, w2, idx1, idx2),
+        lambda: corr.pair_prods_scipy(cells, w2, idx1, idx2)))
+    return secs
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -451,6 +571,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import memento_tpu_torch as mtt
+    from memento_tpu_torch import native
+    from memento_tpu_torch.native import _build as native_build
     from memento_tpu_torch.ops import cuda_kernels, kernel_build, sampling
     from memento_tpu_torch.ops.estimators import HYPER_RELATIVE
     from memento_tpu_torch.utils import profiling
@@ -463,8 +585,15 @@ def main() -> int:
 
     # ---- (a) the card and the build ---------------------------------------
     t0 = time.perf_counter()
-    kernel_build.build()
-    build_s = time.perf_counter() - t0
+    with ThreadPoolExecutor(1) as pool:  # g++ while nvcc runs
+        host_lib = pool.submit(native_build.load)
+        kernel_build.build()
+        build_s = time.perf_counter() - t0
+        host_lib.result()
+    host_build = (f"native host library: {native_build.BUILD_LOG['compiler']}"
+                  f" | build {native_build.BUILD_LOG['seconds']:.2f} s | "
+                  f"{os.cpu_count()} CPUs, {native_build.omp_threads()} "
+                  "OpenMP threads")
     ptxas = cuda_kernels.cascade_ptxas()
     instances = {}
     for w_dim in cuda_kernels.SUPPORTED_W:
@@ -477,7 +606,7 @@ def main() -> int:
             raise AssertionError(f"W={w_dim} instance spills: {ptxas[w_dim]}")
     log(f"(a) card: {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | build {build_s:.2f} s | ptxas and runtime, "
-        f"per W instance: {json.dumps(instances)}")
+        f"per W instance: {json.dumps(instances)} | {host_build}")
 
     # ---- (c) the 1D main path ---------------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -490,9 +619,11 @@ def main() -> int:
         f"simulated in {time.perf_counter() - t0:.1f} s (seed {args.seed})")
 
     cuda_kernels.reset_launches()
+    native.reset_calls()
     profiling.reset_timings()
     result, secs = run_api(mtt, adata, dev, NUM_BOOT)
     launches_1d = dict(cuda_kernels.LAUNCHES)
+    calls_1d = check_native_calls(native, NATIVE_1D, "the 1D main path")
     phases = {name: round(v["total_s"], 3)
               for name, v in profiling.timings().items()}
     if launches_1d["cascade_bootstrap"] <= 0:
@@ -513,8 +644,9 @@ def main() -> int:
     planted_coef = float(np.nanmean(result["de_coef"][planted]))
     log(f"(c) main path: {len(tested)} genes tested ({planted.sum()} planted) | "
         f"seconds {json.dumps(secs)} | ht1d phases {json.dumps(phases)} | "
-        f"launches {json.dumps(launches_1d)} | "
-        f"power {power:.3f} | planted mean coef {planted_coef:.3f} "
+        f"launches {json.dumps(launches_1d)} | native calls "
+        f"{json.dumps(calls_1d)} | power {power:.3f} | planted mean coef "
+        f"{planted_coef:.3f} "
         f"(log 1.6 = 0.470) | null median p {null_median:.3f} | "
         f"null FP@0.05 {null_fp:.3f}")
     if power < 0.8:
@@ -562,9 +694,11 @@ def main() -> int:
                          for pair in zip(idx1, idx2)])
 
     cuda_kernels.reset_launches()
+    native.reset_calls()
     profiling.reset_timings()
     result2, secs2 = run_api_2d(mtt, adata, dev, idx1, idx2, NUM_BOOT)
     launches_2d = dict(cuda_kernels.LAUNCHES)
+    calls_2d = check_native_calls(native, NATIVE_2D, "the 2D main path")
     by_w = dict(cuda_kernels.LAUNCHES_BY_W)
     phases2 = {name: round(v["total_s"], 3)
                for name, v in profiling.timings().items()}
@@ -584,7 +718,8 @@ def main() -> int:
     log(f"(e) 2D main path: {N_PAIRS} pairs tested ({planted2.sum()} planted) "
         f"over {adata.n_vars} genes | seconds {json.dumps(secs2)} | ht2d "
         f"phases {json.dumps(phases2)} | launches {json.dumps(launches_2d)} "
-        f"by W {json.dumps(by_w)} | device program share of ht_2d_moments "
+        f"by W {json.dumps(by_w)} | native calls {json.dumps(calls_2d)} | "
+        f"device program share of ht_2d_moments "
         f"{busy2:.3f} | power {power2:.3f} | planted mean coef "
         f"{planted_coef2:.3f} | null median p {null_median2:.3f} | "
         f"null FP@0.05 {null_fp2:.3f}")
@@ -640,6 +775,14 @@ def main() -> int:
         f"max |diff| {small_err:.3g} (limit 1e-4)")
     if inside.sum() < 0.9 * N_PAIRS or corr_err > 1e-3 or small_err > 1e-4:
         raise AssertionError("correlation matrix disagreement")
+
+    # ---- (g) the native host layer against its plain version ---------------
+    host_secs = native_against_plain(adata, idx1, idx2)
+    log(f"(g) native host layer vs numpy/scipy on the main paths' inputs "
+        f"({os.cpu_count()} CPUs, {native_build.omp_threads()} OpenMP "
+        f"threads): group packer equal as combos per gene, pair packer slot "
+        f"for slot, sums within rtol 1e-12 | seconds "
+        f"{json.dumps(host_secs)} | {card}")
 
     # ---- (b) kernel against its plain version on each main path's tile ----
     counts_np, weights_np, n_obs_np = main_path_tile(adata, HYPER_RELATIVE)

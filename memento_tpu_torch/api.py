@@ -10,8 +10,9 @@ ht_1d_moments -> get_1d_ht_result`` (plus ``get_groups`` and
 JAX package.  Tables come back as ``ColumnTable``s with the JAX DataFrames'
 column names and order.
 
-Host stages are numpy/scipy in float64; the tests and the correlation matrix
-run on the device given to ``ht_1d_moments`` / ``ht_2d_moments`` /
+Host stages are float64, through the native C++ layer (``native/``) where
+the JAX package takes it, else numpy/scipy; the tests and the correlation
+matrix run on the device given to ``ht_1d_moments`` / ``ht_2d_moments`` /
 ``get_corr_matrix`` (default ``cuda``).
 """
 
@@ -22,6 +23,7 @@ import warnings
 import numpy as np
 import scipy.sparse as sparse
 
+from . import native
 from .containers import ColumnTable
 from .device import fold_seed
 from .inference.ht import run_ht_1d, run_ht_2d
@@ -59,6 +61,16 @@ def _residual_variance_np(mean, var, coeffs):
     lm = np.log(mean[cond])
     rv[cond] = np.exp(np.log(var[cond]) - (c2 * lm * lm + c1 * lm + c0))
     return rv
+
+
+def _obs_mean(X):
+    """Per-gene observed mean: one native pass over a CSR matrix (no extra
+    scipy pass over the whole matrix), else scipy's mean."""
+    if sparse.issparse(X) and X.format == "csr":
+        res = native.col_sums_csr_native(X)
+        if res is not None:
+            return res[0] / X.shape[0]
+    return np.asarray(X.mean(axis=0)).ravel()
 
 
 def _model(uns) -> est.NoiseModel:
@@ -122,7 +134,7 @@ def setup_memento(
                                     shrinkage=0.0)
     all_m, all_v = est.mean_var_sparse(adata.X, naive_sf, uns["all_q"],
                                        "hyper_relative")
-    obs_mean = np.asarray(adata.X.mean(axis=0)).ravel()
+    obs_mean = _obs_mean(adata.X)
     all_m = np.asarray(all_m).copy()
     all_m[obs_mean < filter_mean_thresh] = 0  # mean filter
     all_res_var = _residual_variance_np(all_m, all_v,

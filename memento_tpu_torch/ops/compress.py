@@ -1,14 +1,19 @@
 """Unique-value compression of count data for the bootstrap (host).
 
-Counterpart of ``memento_tpu/ops/compress.py`` (its numpy paths): each gene's
-N cells collapse into U unique (expression value, size-factor bin) combos
-with exact integer codes and one ``np.unique`` over the whole gene axis;
-the ragged per-gene combo lists are scatter-packed into padded ``[G, U]``
-tiles.  ``compress_pairs`` does the same for the joint (x1, x2, size-factor
-bin) combos of gene pairs.  Bins with ``count == 0`` are inert padding: they
-get probability 0 in the resampling and weight 0 in the moment contraction.
-In every row the zero-expression combos come first (one per occupied
-size-factor bin, the large counts) and the nonzero combos after them.
+Counterpart of ``memento_tpu/ops/compress.py``.  Each gene's N cells collapse
+into U unique (expression value, size-factor bin) combos, packed into padded
+``[G, U]`` tiles; ``compress_pairs`` does the same for the joint (x1, x2,
+size-factor bin) combos of gene pairs.  The default backend is the native
+C++ packer (``native/compress.cpp``, ``native/pairs.cpp``: one histogram
+pass per gene or pair, OpenMP); the numpy packers (exact integer codes and
+one ``np.unique`` over the whole gene axis) are the oracle of its tests and
+run where the native packer refuses the input (``memento_tpu_torch.native``
+lists when).  Bins with ``count == 0`` are inert padding: they get
+probability 0 in the resampling and weight 0 in the moment contraction.  In
+every row the zero-expression combos come first (one per occupied
+size-factor bin, the large counts) and the nonzero combos after them: in
+code order from the numpy packers and the pair packer, in first-seen order
+from the native group packer (the same combos per gene as a set).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 import scipy.sparse as sparse
 
+from .. import native
 from .size_factor import factorize_approx_sf
 
 
@@ -72,14 +78,53 @@ def _sf_fields(sf, sf_bin, bin_values) -> dict:
                 sf_bin=sf_bin, bin_inv_sf=bin_inv_sf)
 
 
+BACKENDS = ("auto", "numpy", "native")
+
+
 def compress_group(X, approx_sf, pad_multiple: int = 8, min_u: int = 8,
-                   cols=None) -> CompressedGroup:
+                   backend: str = "auto", cols=None) -> CompressedGroup:
     """Compress a group's ``[N, G]`` cell x gene matrix (sparse or dense)
     into padded unique-value tiles; ``cols=(start, stop)`` compresses only
-    that gene range."""
+    that gene range.
+
+    ``backend``: ``'auto'`` (default) is the native packer, giving way to
+    numpy only for an input it refuses; ``'native'`` raises ``ValueError``
+    there instead; ``'numpy'`` is the numpy packer.  On a CSC matrix the
+    native packer reads the matrix's own index and data buffers, for any
+    ``cols`` range, with no copy (the tile loop calls it once per tile).
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; options: {BACKENDS}")
+    if backend != "numpy":
+        out = _compress_group_native(X, approx_sf, pad_multiple, min_u, cols)
+        if out is not None:
+            return out
+        if backend == "native":
+            raise ValueError("the native packer does not take this input "
+                             "(see memento_tpu_torch.native)")
     if cols is not None:
         X = X.tocsc()[:, cols[0]:cols[1]] if sparse.issparse(X) \
             else np.asarray(X)[:, cols[0]:cols[1]]
+    return _compress_group_numpy(X, approx_sf, pad_multiple, min_u)
+
+
+def _compress_group_native(X, approx_sf, pad_multiple, min_u, cols):
+    """The zero-copy range packer on a CSC matrix, else the rounding packer
+    on a CSC copy of the (sliced) matrix; ``None`` where both refuse."""
+    if sparse.issparse(X) and X.format == "csc":
+        start, stop = (0, X.shape[1]) if cols is None else cols
+        out = native.compress_group_range_native(X, approx_sf, start, stop,
+                                                 pad_multiple, min_u)
+        if out is not None:
+            return out
+    if cols is not None:
+        X = (X.tocsc() if sparse.issparse(X) else sparse.csc_matrix(X))[
+            :, cols[0]:cols[1]]
+    return native.compress_group_native(X, approx_sf, pad_multiple, min_u)
+
+
+def _compress_group_numpy(X, approx_sf, pad_multiple,
+                          min_u) -> CompressedGroup:
     if sparse.issparse(X):
         coo = X.tocoo()
         rows, gcols, vals = coo.row, coo.col, coo.data
@@ -175,36 +220,41 @@ class CompressedPairGroup:
         return self.counts.shape[1]
 
 
-PAIR_BACKENDS = ("auto", "numpy", "loop")
+PAIR_BACKENDS = ("auto", "numpy", "loop", "native")
 
 
 def compress_pairs(X_csc, approx_sf, idx1, idx2, pad_multiple: int = 8,
                    min_u: int = 8, backend: str = "auto") -> CompressedPairGroup:
     """Joint (x1, x2, sf-bin) compression for gene pairs (the 2D bootstrap).
 
-    ``backend='numpy'`` packs all pairs with one lexsort; ``'loop'`` is the
-    simple per-pair version; ``'auto'`` is numpy, giving way to the loop only
-    when the joint integer code space overflows int64.  The C++ packer of the
-    JAX package (``'native'``) is not ported yet.
+    ``backend='native'`` is the C++ per-pair merge packer
+    (``native/pairs.cpp``, OpenMP over pairs; ``ValueError`` for an input it
+    refuses); ``'numpy'`` packs all pairs with one lexsort, giving way to
+    the loop when the joint integer code space overflows int64; ``'loop'``
+    is the simple per-pair version; ``'auto'`` (default) is native, then
+    numpy, then the loop.  All of them give the same tiles, slot for slot.
 
     Args:
       X_csc: ``[N, G]`` CSC matrix of the group.
       idx1, idx2: ``[P]`` integer gene indices of each pair.
     """
-    if backend == "native":
-        raise NotImplementedError(
-            "the native C++ pair packer is not ported yet; options: "
-            f"{PAIR_BACKENDS}")
     if backend not in PAIR_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; options: "
                          f"{PAIR_BACKENDS}")
+    if backend in ("auto", "native"):
+        out = native.compress_pairs_native(X_csc, approx_sf, idx1, idx2,
+                                           pad_multiple, min_u)
+        if out is not None:
+            return out
+        if backend == "native":
+            raise ValueError("the native pair packer does not take this "
+                             "input (see memento_tpu_torch.native)")
     if backend in ("auto", "numpy"):
         try:
             return _compress_pairs_vectorized(X_csc, approx_sf, idx1, idx2,
                                               pad_multiple, min_u)
         except OverflowError:
-            if backend == "numpy":
-                raise
+            pass  # the joint code space overflows int64: take the loop
     return _compress_pairs_loop(X_csc, approx_sf, idx1, idx2, pad_multiple,
                                 min_u)
 
@@ -377,4 +427,4 @@ def _compress_pairs_loop(X_csc, approx_sf, idx1, idx2, pad_multiple,
 
 
 __all__ = ["CompressedGroup", "CompressedPairGroup", "compress_group",
-           "compress_pairs", "PAIR_BACKENDS"]
+           "compress_pairs", "BACKENDS", "PAIR_BACKENDS"]

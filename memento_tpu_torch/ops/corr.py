@@ -3,7 +3,8 @@
 Counterpart of ``memento_tpu/ops/corr.py``.  Two paths:
 
 - ``cov_sparse_pairs``: exact host float64 covariances for explicit gene-pair
-  lists, from sparse column products (scipy).
+  lists; the pair product sums in one native pass over the CSC columns
+  (``native/suffstats.cpp``), else scipy column products.
 - ``corr_matrix_device``: the G x G correlation matrix as a blocked weighted
   Gram matrix on the device.  Cells stream through in dense blocks and
   accumulate ``(WX)^T (WX)`` in float32 with a compensated (Kahan) sum across
@@ -23,6 +24,7 @@ import numpy as np
 import scipy.sparse as sparse
 import torch
 
+from .. import native
 from ..device import resolve_device
 from .estimators import NoiseModel
 from .transport import compact_transport_dtype
@@ -46,13 +48,27 @@ def cov_sparse_pairs(X, size_factor, q, idx1, idx2, model: NoiseModel):
     s1 = np.asarray(w @ X).ravel() / n  # per-gene mean of x/sf
     s1sq = np.asarray(w2 @ X).ravel() / n  # per-gene mean of x/sf^2
 
-    inv2 = sparse.diags((1.0 / sf) ** 2)
-    prod = np.asarray((X[:, idx1].multiply(inv2 @ X[:, idx2])).sum(axis=0)
-                      ).ravel() / n
+    prod = pair_prods(X, (1.0 / sf) ** 2, idx1, idx2) / n
 
     c = float(np.asarray(model.var_correction(q)))
     prod = prod - np.where(idx1 == idx2, c * s1sq[idx1], 0.0)
     return prod - s1[idx1] * s1[idx2]
+
+
+def pair_prods(X_csc, inv_sf_sq, idx1, idx2):
+    """Per-pair ``sum_c x1 x2 / sf^2`` of a CSC matrix: one native pass
+    (sorted-index intersection of the two columns), or ``pair_prods_scipy``
+    where the native pass refuses the input."""
+    prod = native.pair_prods_csc_native(X_csc, inv_sf_sq, idx1, idx2)
+    return pair_prods_scipy(X_csc, inv_sf_sq, idx1, idx2) if prod is None \
+        else prod
+
+
+def pair_prods_scipy(X_csc, inv_sf_sq, idx1, idx2):
+    """``pair_prods`` from scipy column gathers (the plain version)."""
+    inv2 = sparse.diags(np.asarray(inv_sf_sq, dtype=np.float64))
+    return np.asarray((X_csc[:, idx1].multiply(inv2 @ X_csc[:, idx2])
+                       ).sum(axis=0)).ravel()
 
 
 def _kahan_add(acc, comp, update):
@@ -183,5 +199,5 @@ def finish_corr_host(S, s1, sdiag, var, n, c):
     return finish_corr_rows(S, 0, s1, sdiag, var, n, c)
 
 
-__all__ = ["cov_sparse_pairs", "corr_matrix_device", "finish_corr_host",
-           "finish_corr_rows"]
+__all__ = ["cov_sparse_pairs", "pair_prods", "pair_prods_scipy",
+           "corr_matrix_device", "finish_corr_host", "finish_corr_rows"]

@@ -11,10 +11,11 @@ through three sufficient statistics per gene::
     M2  = s2 / N - c * s1sq / N      (c = 1-q hypergeometric, 1 Poisson)
     var = M2 - M1^2
 
-Observed moments are computed once per group on the host in float64 with
-scipy; the bootstrap replicates contract the same per-bin weights on the
-device (``ops/bootstrap.py``), where ``corr_from_cov`` turns replicate
-covariances into correlations.
+Observed moments are computed once per group on the host in float64, in one
+native pass (``native/suffstats.cpp``) or with scipy; the bootstrap
+replicates contract the same per-bin weights on the device
+(``ops/bootstrap.py``), where ``corr_from_cov`` turns replicate covariances
+into correlations.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from typing import Callable, Optional, Tuple, Union
 import numpy as np
 import scipy.sparse as sparse
 import torch
+
+from .. import native
 
 
 @dataclass(frozen=True)
@@ -98,7 +101,22 @@ def mean_var_from_suffstats(s1, s2, s1sq, n_obs, q, model: NoiseModel):
 
 
 def suffstats_sparse(X, size_factor):
-    """Exact float64 sufficient statistics ``(s1, s2, s1sq)`` per gene."""
+    """Exact float64 sufficient statistics ``(s1, s2, s1sq)`` per gene.
+
+    A CSR or CSC matrix takes one fused native pass (OpenMP, float64
+    accumulation); other input, or one the native pass refuses, takes
+    ``suffstats_scipy``."""
+    out = None
+    if sparse.issparse(X) and X.format == "csr":
+        out = native.suffstats_csr_native(X, size_factor)
+    elif sparse.issparse(X) and X.format == "csc":
+        out = native.suffstats_csc_native(X, size_factor)
+    return suffstats_scipy(X, size_factor) if out is None else out
+
+
+def suffstats_scipy(X, size_factor):
+    """``suffstats_sparse`` in scipy: a CSC conversion and row-weight
+    products (the plain version of the native passes)."""
     X = X.tocsc() if sparse.issparse(X) else sparse.csc_matrix(X)
     inv_sf = (1.0 / np.asarray(size_factor)).reshape(1, -1)
     inv_sf_sq = inv_sf**2
@@ -146,6 +164,7 @@ __all__ = [
     "is_absolute",
     "mean_var_from_suffstats",
     "suffstats_sparse",
+    "suffstats_scipy",
     "mean_var_sparse",
     "corr_from_cov",
 ]

@@ -2,7 +2,8 @@
 
 Counterpart of ``memento_tpu/ops/size_factor.py``:
 
-- ``estimate_size_factor``: total-count or masked+shrunk size factors;
+- ``estimate_size_factor``: total-count or masked+shrunk size factors (row
+  totals in one native CSR pass, ``native/suffstats.cpp``, else scipy);
 - ``bin_size_factor``: quantize size factors into ``num_bins`` equal-width
   bins, replacing each cell's factor by its bin mean (the maximal cells keep
   their exact value) — what makes the unique-value compression effective;
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sparse
 
+from .. import native
 from .estimators import EstimatorType, is_absolute
 
 
@@ -37,18 +39,28 @@ def estimate_size_factor(
     if not total and mask is None:
         raise ValueError("one of total=True or mask=... is required")
 
-    if sparse.issparse(X):
+    # row totals and masked totals in one native CSR pass (X.multiply(mask)
+    # below allocates an nnz-sized temporary)
+    native_sums = None
+    if sparse.issparse(X) and X.format == "csr":
+        native_sums = native.row_sums_csr_native(
+            X, mask=np.asarray(mask) if mask is not None else None)
+
+    if native_sums is not None:
+        row_tot, nrc = native_sums
+    elif sparse.issparse(X):
         row_tot = np.asarray(X.sum(axis=1)).reshape(-1)
     else:
         row_tot = np.asarray(X).sum(axis=1)
 
     if mask is not None:
-        mask = np.asarray(mask)
-        if sparse.issparse(X):
-            nrc = np.asarray(
-                X.multiply(mask.reshape(1, -1)).sum(axis=1)).reshape(-1)
-        else:
-            nrc = (np.asarray(X) * mask.reshape(1, -1)).sum(axis=1)
+        if native_sums is None:
+            mask = np.asarray(mask)
+            if sparse.issparse(X):
+                nrc = np.asarray(
+                    X.multiply(mask.reshape(1, -1)).sum(axis=1)).reshape(-1)
+            else:
+                nrc = (np.asarray(X) * mask.reshape(1, -1)).sum(axis=1)
         nrc = nrc + np.quantile(nrc, shrinkage)  # additive shrinkage
         return nrc / nrc.mean()
 

@@ -127,6 +127,10 @@ def test_residual_variance_matches_jax(rng):
     assert np.isnan(got[0, 0, :5]).all() and np.isnan(got[1, 2, :5]).all()
 
 
+GROUP_FIELDS = ("values", "counts", "n_unique", "sf_bin", "bin_inv_sf",
+                "inv_sf", "inv_sf_sq")
+
+
 @pytest.mark.parametrize("cols", [None, (5, 17)])
 def test_compress_group_exact(rng, cols):
     X = _counts(rng, n=500, g=30)
@@ -134,9 +138,28 @@ def test_compress_group_exact(rng, cols):
     approx = j_sf.bin_size_factor(rng.uniform(0.4, 2.5, X.shape[0]), 30)
     want = j_compress.compress_group(X.tocsc(), approx, backend="numpy",
                                      cols=cols)
+    got = t_compress.compress_group(X.tocsc(), approx, backend="numpy",
+                                    cols=cols)
+    for field in GROUP_FIELDS:
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(want, field), err_msg=field)
+    assert got.n_obs == want.n_obs and got.padded_u == want.padded_u
+    dense = t_compress.compress_group(X.toarray(), approx, backend="numpy",
+                                      cols=cols)
+    np.testing.assert_array_equal(dense.counts, got.counts)
+
+
+@pytest.mark.parametrize("cols", [None, (5, 17)])
+def test_compress_group_native_default_exact(rng, cols):
+    """The port's default (native) packer equals the JAX package's native
+    packer field for field, on CSC (zero-copy range path) and dense input."""
+    X = _counts(rng, n=500, g=30)
+    X.data[::7] = 41.0
+    approx = j_sf.bin_size_factor(rng.uniform(0.4, 2.5, X.shape[0]), 30)
+    want = j_compress.compress_group(X.tocsc(), approx, backend="native",
+                                     cols=cols)
     got = t_compress.compress_group(X.tocsc(), approx, cols=cols)
-    for field in ("values", "counts", "n_unique", "sf_bin", "bin_inv_sf",
-                  "inv_sf", "inv_sf_sq"):
+    for field in GROUP_FIELDS:
         np.testing.assert_array_equal(getattr(got, field),
                                       getattr(want, field), err_msg=field)
     assert got.n_obs == want.n_obs and got.padded_u == want.padded_u

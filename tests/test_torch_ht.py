@@ -23,6 +23,7 @@ from memento_tpu.ops.size_factor import bin_size_factor, estimate_size_factor
 
 from memento_tpu_torch.convert import from_jax_outputs
 from memento_tpu_torch.inference import ht as t_ht
+from memento_tpu_torch.ops import compress as t_compress
 from memento_tpu_torch.ops import estimators as t_est
 
 # tier-1 runs several pytest workers at once: one torch thread each keeps
@@ -148,12 +149,14 @@ def test_one_sample_matches_jax(inputs):
 
 def test_pipelined_compression_equals_precompressed(inputs):
     """Raw groups compressed per tile on the prefetch thread give the same
-    result, to the bit, as the precompressed tiles (the per-tile seeds fold
-    the tile start, not the execution order)."""
+    result, to the bit, as the tiles precompressed by the same (default,
+    native) packer (the per-tile seeds fold the tile start, not the
+    execution order)."""
     common = _common(inputs, resampling="bootstrap", approx=True,
                      model=t_est.HYPER_RELATIVE, device="cpu", tile_size=32)
-    ported = from_jax_outputs(compressed=inputs["comps"])["compressed"]
-    a = t_ht.run_ht_1d(5, compressed=ported, **common)
+    packed = [t_compress.compress_group(grp, asf) for grp, asf in
+              zip(inputs["groups"], inputs["approx_sf"])]
+    a = t_ht.run_ht_1d(5, compressed=packed, **common)
     b = t_ht.run_ht_1d(5, groups=inputs["groups"],
                        approx_sf=inputs["approx_sf"], max_pending=1, **common)
     for k in a:

@@ -84,12 +84,39 @@ def test_compress_pairs_without_compact_form(rng):
 
 
 def test_compress_pairs_backends_refused(rng):
+    """An unknown backend is refused; ``native`` runs the C++ packer, which
+    equals the numpy packer slot for slot."""
     X = _counts(rng, n=50, g=6)
     approx = np.ones(50)
-    with pytest.raises(NotImplementedError, match="native"):
-        t_compress.compress_pairs(X, approx, [0], [1], backend="native")
     with pytest.raises(ValueError, match="backend"):
         t_compress.compress_pairs(X, approx, [0], [1], backend="fast")
+    got = t_compress.compress_pairs(X, approx, [0, 2], [1, 2],
+                                    backend="native")
+    want = t_compress.compress_pairs(X, approx, [0, 2], [1, 2],
+                                     backend="numpy")
+    for field in PAIR_FIELDS:
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(want, field), err_msg=field)
+
+
+@pytest.mark.parametrize("backend", ["numpy", "auto", "native"])
+def test_compress_pairs_code_overflow_falls_through(rng, backend):
+    """Counts near 3e8 overflow the joint int64 code space of the one-sort
+    packer over four pairs (not that of a single pair): ``numpy`` falls
+    through to the loop, as the JAX package does, and every backend gives
+    the JAX package's tiles."""
+    X = _counts(rng, n=300, g=8)
+    X.data[::5] = rng.integers(2e8, 3e8, X.data[::5].size)
+    approx = j_sf.bin_size_factor(rng.uniform(0.4, 2.5, X.shape[0]), 30)
+    idx1, idx2 = [0, 1, 2, 4], [5, 6, 7, 4]
+    with pytest.raises(OverflowError):
+        t_compress._compress_pairs_vectorized(X, approx, idx1, idx2, 8, 8)
+    want = j_compress.compress_pairs(X, approx, idx1, idx2, backend="numpy")
+    got = t_compress.compress_pairs(X, approx, idx1, idx2, backend=backend)
+    for field in PAIR_FIELDS:
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(want, field), err_msg=field)
+    assert got.values_1.max() > 1e8
 
 
 @pytest.mark.parametrize("estimator", ["hyper_relative", "poi_relative"])
