@@ -30,6 +30,17 @@ Phases, one line each:
       (slot for slot), the sufficient statistics (CSR and CSC), the size
       factors (total and masked), the observed mean and the pair products of
       ``cov_sparse_pairs`` (rtol 1e-12);
+  (h) the tests' other options at full width on the state (c) and (e) left,
+      each timed with its peak device memory: the exact multinomial sampler
+      in 1D and 2D (held against (c)'s and (e)'s cascade runs: the same
+      coefficients, SEs within 10%), the Poisson and Gaussian samplers in
+      chunks of 256 replicates, per-gene treatments (eQTL mode), a
+      checkpointed run resumed after one block file is deleted (bit for bit,
+      one block recomputed) and a custom estimator tuple through the whole
+      pipeline (the device path); then on (c)'s small slice, card against
+      CPU: 2D with the Poisson and Gaussian samplers, with a custom tuple and
+      with per-pair treatments, and a numpy-only 1D estimator (the host
+      path);
   (b) the kernel against its plain PyTorch version on each main path's own
       tile, B = 2000: W = 1 and W = 2 on the 1D tile, W = 5 on the 2D tile,
       in distribution; then, with the same seed, element by element against
@@ -55,6 +66,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -169,6 +181,322 @@ def simulate(rng, n_cells, n_genes, pair_rng):
         "capture_q": np.full(len(cond), CAPTURE_Q),
     }
     return X, obs, planted
+
+
+def hyper_1d(data, n_obs, q, size_factor=None):
+    """``hyper_relative``'s moments as a user estimator with the reference's
+    dual signature: a tuple ``(expr [U, 1], draws [U, B])`` of tensors (its
+    replicate moments), or a sparse matrix (its observed moments, scipy)."""
+    if isinstance(data, tuple):
+        m1 = (data[0] * data[1] * size_factor[0]).sum(axis=0) / n_obs
+        m2 = (data[0] ** 2 * data[1] * size_factor[1]
+              - (1 - q) * data[0] * data[1] * size_factor[1]).sum(
+                  axis=0) / n_obs
+        return [m1, m2 - m1 * m1]
+    weight = (1.0 / size_factor).reshape(1, -1)
+    m1 = np.asarray(weight @ data).ravel() / n_obs
+    m2 = (np.asarray(weight**2 @ data.power(2)).ravel()
+          - (1 - q) * np.asarray(weight**2 @ data).ravel()) / n_obs
+    return [m1, m2 - m1 * m1]
+
+
+def numpy_hyper_1d(data, n_obs, q, size_factor=None):
+    """``hyper_1d`` written for numpy only (as for the reference): it cannot
+    take a CUDA tensor, so the port runs it on the host."""
+    if isinstance(data, tuple):
+        expr, draws = (np.asarray(x, dtype=np.float64) for x in data)
+        isf, isf2 = (np.asarray(x, dtype=np.float64) for x in size_factor)
+        m1 = (expr * draws * isf).sum(axis=0) / n_obs
+        m2 = (expr**2 * draws * isf2 - (1 - q) * expr * draws * isf2).sum(
+            axis=0) / n_obs
+        return [m1, m2 - m1**2]
+    return hyper_1d(data, n_obs, q, size_factor)
+
+
+def hyper_cov(data, n_obs, q, size_factor, idx1=None, idx2=None):
+    """``hyper_relative``'s covariance of two distinct genes, dual
+    signature: a tuple ``(expr1 [U, 1], expr2 [U, 1], draws [U, B])`` or a
+    sparse matrix with the pairs' gene indices."""
+    if isinstance(data, tuple):
+        m1 = (data[0] * data[2] * size_factor[0]).sum(axis=0) / n_obs
+        m2 = (data[1] * data[2] * size_factor[0]).sum(axis=0) / n_obs
+        mx = (data[0] * data[1] * data[2] * size_factor[1]).sum(
+            axis=0) / n_obs
+        return mx - m1 * m2
+    weight = (1.0 / size_factor).reshape(-1, 1)
+    x = data[:, idx1].multiply(weight).tocsr()
+    y = data[:, idx2].multiply(weight).tocsr()
+    prod = np.asarray(x.multiply(y).sum(axis=0)).ravel() / n_obs
+    return prod - (np.asarray(x.mean(axis=0)).ravel()
+                   * np.asarray(y.mean(axis=0)).ravel())
+
+
+def measured(fn, *a, **kw):
+    """``fn(*a, **kw)`` between two device synchronisations: its result and
+    ``{s, peak_gib, cascade_launches, custom_paths}`` of the call."""
+    import torch
+
+    from memento_tpu_torch.ops import bootstrap, cuda_kernels
+
+    cuda_kernels.reset_launches()
+    bootstrap.reset_custom_paths()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    torch.cuda.synchronize()
+    return out, {
+        "s": round(time.perf_counter() - t0, 3),
+        "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3),
+        "cascade_launches": cuda_kernels.LAUNCHES["cascade_bootstrap"],
+        "custom_paths": dict(bootstrap.CUSTOM_PATHS)}
+
+
+def same_coefficients(res, base, cols, label, rtol=1e-5, atol=1e-6):
+    """The rows of two result tables name the same items and their
+    (deterministic) coefficients agree."""
+    for key in ("gene", "gene_1", "gene_2"):
+        if key in base.columns and list(res[key]) != list(base[key]):
+            raise AssertionError(f"{label}: {key} lists differ")
+    for col in cols:
+        np.testing.assert_allclose(res[col], base[col], rtol=rtol, atol=atol,
+                                   equal_nan=True, err_msg=f"{label} {col}")
+
+
+def se_log_ratio(res, base, col):
+    """Median |log(SE / SE of ``base``)| over the rows finite in both."""
+    a, b = np.asarray(res[col], float), np.asarray(base[col], float)
+    ok = np.isfinite(a) & np.isfinite(b) & (a > 0) & (b > 0)
+    return float(np.median(np.abs(np.log(a[ok] / b[ok]))))
+
+
+def median_dp(res, base, col):
+    return float(np.nanmedian(np.abs(np.asarray(res[col], float)
+                                     - np.asarray(base[col], float))))
+
+
+def require(ok: bool, message: str) -> None:
+    if not ok:
+        raise AssertionError(message)
+
+
+def unique_pairs(adata):
+    """The unordered gene-name pairs of ``compute_2d_moments`` that the 2D
+    test runs (no self-pair), in order of first appearance."""
+    seen = []
+    for a, b in adata.uns["memento"]["2d_moments"]["gene_pairs"]:
+        key = frozenset((a, b))
+        if a != b and key not in seen:
+            seen.append(key)
+    return seen
+
+
+def options_full_width(mtt, adata, dev, base, base2, planted2, X, obs,
+                       genes):
+    """Phase (h) at full width: each option's run against (c)'s (``base``)
+    or (e)'s (``base2``) on the same state; returns a dict of each run's
+    numbers.  Every gate raises."""
+    covariate, treatment = design(mtt, adata)
+    ht = dict(covariate=covariate, treatment=treatment, num_boot=NUM_BOOT,
+              resampling="bootstrap", approx=False, verbose=0, device=dev)
+
+    def run_1d(ad=adata, **kw):
+        mtt.ht_1d_moments(ad, **dict(ht, **kw))
+        return mtt.get_1d_ht_result(ad)
+
+    def run_2d(**kw):
+        mtt.ht_2d_moments(adata, **dict(ht, **kw))
+        return mtt.get_2d_ht_result(adata)
+
+    out = {}
+    planted = planted_genes_of(base)
+    # exact multinomial, 1D and 2D: the cascade kernel held against exact
+    # conditional binomials at full scale
+    res, info = measured(run_1d, sampler="multinomial")
+    require(info["cascade_launches"] == 0, f"multinomial 1D: {info}")
+    same_coefficients(res, base, ("de_coef", "dv_coef"), "multinomial 1D")
+    info["se_log_ratio"] = {c: se_log_ratio(res, base, c)
+                            for c in ("de_se", "dv_se")}
+    require(max(info["se_log_ratio"].values()) < 0.10,
+            f"multinomial 1D SEs against the cascade's: {info}")
+    info["power_null_median_fp"] = calibration(res["de_pval"], planted,
+                                               "(h) multinomial 1D")
+    info["median_dp"] = {c: median_dp(res, base, c)
+                         for c in ("de_pval", "dv_pval")}
+    out["1d_multinomial"] = info
+
+    res, info = measured(run_2d, sampler="multinomial")
+    require(info["cascade_launches"] == 0, f"multinomial 2D: {info}")
+    same_coefficients(res, base2, ("corr_coef",), "multinomial 2D")
+    info["se_log_ratio"] = se_log_ratio(res, base2, "corr_se")
+    require(info["se_log_ratio"] < 0.10,
+            f"multinomial 2D SEs against the cascade's: {info}")
+    info["power_null_median_fp"] = calibration(res["corr_pval"], planted2,
+                                               "(h) multinomial 2D")
+    info["median_dp"] = median_dp(res, base2, "corr_pval")
+    out["2d_multinomial"] = info
+
+    # the materialized samplers, 256 replicates a chunk: not conditioned on
+    # N, so their SEs are expected at or above the cascade's (not gated)
+    for sampler in ("poisson", "gaussian"):
+        res, info = measured(run_1d, sampler=sampler, boot_chunk=256)
+        require(info["cascade_launches"] == 0, f"{sampler}: {info}")
+        same_coefficients(res, base, ("de_coef", "dv_coef"), sampler)
+        info["power_null_median_fp"] = calibration(
+            res["de_pval"], planted, f"(h) {sampler}",
+            check_null_median=False)
+        info["median_se_ratio"] = float(np.nanmedian(
+            np.asarray(res["de_se"], float) / np.asarray(base["de_se"])))
+        out[f"1d_{sampler}"] = info
+
+    # eQTL mode: even genes test the condition, odd genes also the replicate
+    groups = mtt.get_groups(adata)
+    two = mtt.ColumnTable({"tx": groups["condition"].astype(np.float64),
+                           "rep": groups["replicate"].astype(np.float64)},
+                          index=groups.index)
+    tfg = {g: ["tx"] if i % 2 == 0 else ["tx", "rep"]
+           for i, g in enumerate(adata.var.index)}
+    res, info = measured(run_1d, treatment=two, treatment_for_gene=tfg)
+    require(len(res["gene"]) == sum(len(v) for v in tfg.values()),
+            f"eQTL: {len(res['gene'])} rows")
+    on_tx = np.asarray(res["tx"]) == "tx"
+    tx_rows = mtt.ColumnTable({c: np.asarray(res[c])[on_tx]
+                               for c in res.columns})
+    same_coefficients(tx_rows, base, ("de_coef",), "eQTL tx rows")
+    info["se_log_ratio"] = se_log_ratio(tx_rows, base, "de_se")
+    require(info["se_log_ratio"] < 0.05, f"eQTL SEs: {info}")
+    info["power"] = float((np.asarray(tx_rows["de_pval"])[planted]
+                           < 0.05).mean())
+    require(info["power"] >= 0.8, f"eQTL power: {info}")
+    info["rows"] = len(res["gene"])
+    out["1d_eqtl"] = info
+
+    # checkpointed in blocks of 256 genes; block 2 deleted and run again
+    with tempfile.TemporaryDirectory() as ckpt:
+        first, info = measured(run_1d, checkpoint_dir=ckpt,
+                               checkpoint_block=256)
+        blocks = sorted(os.listdir(ckpt))
+        require(len(blocks) == -(-adata.n_vars // 256), f"blocks {blocks}")
+        require(info["cascade_launches"] == len(blocks),
+                f"one tile per block expected: {info}")
+        os.remove(os.path.join(ckpt, "1d_ht_block00002.npz"))
+        second, again = measured(run_1d, checkpoint_dir=ckpt,
+                                 checkpoint_block=256)
+    require(again["cascade_launches"] == 1,
+            f"the resumed run launched {again['cascade_launches']} tiles")
+    for col in first.columns:
+        require(np.array_equal(np.asarray(first[col]),
+                               np.asarray(second[col]),
+                               equal_nan=first[col].dtype.kind == "f"),
+                f"the resumed run differs in {col}")
+    same_coefficients(second, base, ("de_coef", "dv_coef"), "checkpointed")
+    out["1d_checkpoint"] = {"blocks": len(blocks), "first": info,
+                            "resumed": again}
+
+    # a custom estimator tuple through the whole pipeline
+    custom = mtt.AnnData(X, obs=obs, var=mtt.ColumnTable(index=genes))
+    t0 = time.perf_counter()
+    mtt.setup_memento(custom, q_column="capture_q",
+                      estimator_type=(hyper_1d, hyper_cov))
+    mtt.create_groups(custom, label_columns=["condition", "replicate"])
+    mtt.compute_1d_moments(custom)
+    prep_s = time.perf_counter() - t0
+    res, info = measured(run_1d, ad=custom)
+    require(info["cascade_launches"] == 0, f"custom: {info}")
+    require(info["custom_paths"] == {"device": len(groups), "host": 0},
+            f"the custom estimator did not take the device path: {info}")
+    same_coefficients(res, base, ("de_coef", "dv_coef"), "custom")
+    info["se_log_ratio"] = se_log_ratio(res, base, "de_se")
+    require(info["se_log_ratio"] < 0.10, f"custom SEs: {info}")
+    info["prepare_s"] = round(prep_s, 3)
+    out["1d_custom"] = info
+    return out
+
+
+def options_small_slice(mtt, small_ad, X, obs, genes, rows, cols):
+    """Phase (h) on (c)'s small slice, card against CPU: 2D with the Poisson
+    and Gaussian samplers, per-pair treatments and a custom tuple, and a
+    numpy-only 1D estimator (the host path on both).  Returns the median SE
+    ratio of each."""
+    from memento_tpu_torch.ops import bootstrap
+
+    results = {}
+    for where in ("cuda", "cpu"):
+        ad = small_ad[where]
+        covariate, treatment = design(mtt, ad)
+        kw = dict(covariate=covariate, num_boot=500, resampling="bootstrap",
+                  approx=False, verbose=0, device=where)
+        got = results[where] = {}
+        for sampler in ("poisson", "gaussian"):
+            mtt.ht_2d_moments(ad, treatment=treatment, sampler=sampler, **kw)
+            got[f"2d_{sampler}"] = mtt.get_2d_ht_result(ad)
+        groups = mtt.get_groups(ad)
+        two = mtt.ColumnTable({"tx": groups["condition"].astype(np.float64),
+                               "rep": groups["replicate"].astype(np.float64)},
+                              index=groups.index)
+        tfg = {pair: ["tx"] if k % 2 == 0 else ["tx", "rep"]
+               for k, pair in enumerate(unique_pairs(ad))}
+        mtt.ht_2d_moments(ad, treatment=two, treatment_for_gene=tfg, **kw)
+        got["2d_eqtl"] = mtt.get_2d_ht_result(ad)
+
+        custom = mtt.AnnData(X[rows][:, cols],
+                             obs={k: v[rows] for k, v in obs.items()},
+                             var=mtt.ColumnTable(index=genes[cols]))
+        mtt.setup_memento(custom, q_column="capture_q",
+                          estimator_type=(hyper_1d, hyper_cov))
+        mtt.create_groups(custom, label_columns=["condition", "replicate"])
+        mtt.compute_1d_moments(custom)
+        mtt.compute_2d_moments(custom,
+                               ad.uns["memento"]["2d_moments"]["gene_pairs"])
+        bootstrap.reset_custom_paths()
+        mtt.ht_2d_moments(custom, treatment=treatment, **kw)
+        require(bootstrap.CUSTOM_PATHS == {"device": 4, "host": 0},
+                f"2D custom on {where}: {bootstrap.CUSTOM_PATHS}")
+        got["2d_custom"] = mtt.get_2d_ht_result(custom)
+        custom.uns["memento"]["estimator_type"] = (numpy_hyper_1d, hyper_cov)
+        bootstrap.reset_custom_paths()
+        mtt.ht_1d_moments(custom, treatment=treatment, **kw)
+        require(bootstrap.CUSTOM_PATHS == {"device": 0, "host": 4},
+                f"numpy-only 1D on {where}: {bootstrap.CUSTOM_PATHS}")
+        got["1d_numpy_only"] = mtt.get_1d_ht_result(custom)
+
+    ratios = {}
+    for name, card in results["cuda"].items():
+        cpu = results["cpu"][name]
+        cols_ = ("de_coef", "dv_coef") if name.startswith("1d") \
+            else ("corr_coef",)
+        same_coefficients(card, cpu, cols_, f"small slice {name}", rtol=1e-4,
+                          atol=1e-5)
+        se = "de_se" if name.startswith("1d") else "corr_se"
+        ratios[name] = float(np.nanmedian(np.asarray(card[se], float)
+                                          / np.asarray(cpu[se], float)))
+        require(0.85 <= ratios[name] <= 1.15,
+                f"small slice {name}: median SE ratio {ratios[name]}")
+    return ratios
+
+
+def planted_genes_of(result):
+    """Which rows of a 1D result table test a gene with a planted effect."""
+    return np.array([int(x[1:]) < N_PLANTED for x in result["gene"]])
+
+
+def calibration(pvals, planted, label, check_null_median=True):
+    """Power on the planted genes or pairs, the null median p-value and the
+    null false-positive share at 0.05; raises below power 0.8, for a null
+    median outside [0.3, 0.7] (unless not asked) or a share above 0.10."""
+    pvals = np.asarray(pvals, dtype=np.float64)
+    power = float((pvals[planted] < 0.05).mean())
+    null_median = float(np.nanmedian(pvals[~planted]))
+    null_fp = float((pvals[~planted] < 0.05).mean())
+    if power < 0.8:
+        raise AssertionError(f"{label}: power on planted items {power} < 0.8")
+    if check_null_median and not 0.3 <= null_median <= 0.7:
+        raise AssertionError(f"{label}: null median p {null_median} outside "
+                             "[0.3, 0.7]")
+    if null_fp > 0.10:
+        raise AssertionError(f"{label}: null false-positive share {null_fp} "
+                             "> 0.10")
+    return power, null_median, null_fp
 
 
 def draw_pairs(n_genes, n_pairs):
@@ -630,17 +958,13 @@ def main() -> int:
         raise AssertionError(f"main path launched no kernel: {launches_1d}")
 
     tested = result["gene"]
-    gene_idx = np.array([int(x[1:]) for x in tested])
-    de_p = result["de_pval"]
     if len(tested) < 0.8 * N_GENES or result.shape[1] != 8:
         raise AssertionError(f"unexpected result shape {result.shape}")
     if not np.isfinite(result["de_coef"]).mean() > 0.95:
         raise AssertionError("too many non-finite coefficients")
-    planted = gene_idx < N_PLANTED
-    power = float((de_p[planted] < 0.05).mean())
-    null_p = de_p[~planted]
-    null_median = float(np.nanmedian(null_p))
-    null_fp = float((null_p < 0.05).mean())
+    planted = planted_genes_of(result)
+    power, null_median, null_fp = calibration(result["de_pval"], planted,
+                                              "1D")
     planted_coef = float(np.nanmean(result["de_coef"][planted]))
     log(f"(c) main path: {len(tested)} genes tested ({planted.sum()} planted) | "
         f"seconds {json.dumps(secs)} | ht1d phases {json.dumps(phases)} | "
@@ -649,12 +973,6 @@ def main() -> int:
         f"{planted_coef:.3f} "
         f"(log 1.6 = 0.470) | null median p {null_median:.3f} | "
         f"null FP@0.05 {null_fp:.3f}")
-    if power < 0.8:
-        raise AssertionError(f"power on planted genes {power} < 0.8")
-    if not 0.3 <= null_median <= 0.7:
-        raise AssertionError(f"null median p {null_median} outside [0.3, 0.7]")
-    if null_fp > 0.10:
-        raise AssertionError(f"null false-positive share {null_fp} > 0.10")
 
     # the same API on a small slice, on the card and on the CPU (plain path):
     # observed coefficients are deterministic and must agree
@@ -709,10 +1027,8 @@ def main() -> int:
         raise AssertionError(f"unexpected 2D result shape {result2.shape}")
     if not np.isfinite(result2["corr_coef"]).mean() > 0.95:
         raise AssertionError("too many non-finite correlation coefficients")
-    dc_p = result2["corr_pval"]
-    power2 = float((dc_p[planted2] < 0.05).mean())
-    null_median2 = float(np.nanmedian(dc_p[~planted2]))
-    null_fp2 = float((dc_p[~planted2] < 0.05).mean())
+    power2, null_median2, null_fp2 = calibration(result2["corr_pval"],
+                                                 planted2, "2D")
     planted_coef2 = float(np.nanmean(result2["corr_coef"][planted2]))
     busy2 = phases2["ht2d.dispatch"] / secs2["ht_2d_moments"]
     log(f"(e) 2D main path: {N_PAIRS} pairs tested ({planted2.sum()} planted) "
@@ -723,13 +1039,6 @@ def main() -> int:
         f"{busy2:.3f} | power {power2:.3f} | planted mean coef "
         f"{planted_coef2:.3f} | null median p {null_median2:.3f} | "
         f"null FP@0.05 {null_fp2:.3f}")
-    if power2 < 0.8:
-        raise AssertionError(f"power on planted pairs {power2} < 0.8")
-    if not 0.3 <= null_median2 <= 0.7:
-        raise AssertionError(f"2D null median p {null_median2} outside "
-                             "[0.3, 0.7]")
-    if null_fp2 > 0.10:
-        raise AssertionError(f"2D null false-positive share {null_fp2} > 0.10")
 
     # the same API on the small slice, on the card and on the CPU
     s_idx1, s_idx2 = draw_pairs(small_ad["cuda"].n_vars, 48)
@@ -783,6 +1092,18 @@ def main() -> int:
         f"threads): group packer equal as combos per gene, pair packer slot "
         f"for slot, sums within rtol 1e-12 | seconds "
         f"{json.dumps(host_secs)} | {card}")
+
+    # ---- (h) the other options -------------------------------------------
+    t0 = time.perf_counter()
+    options = options_full_width(mtt, adata, dev, result, result2, planted2,
+                                 X, obs, genes)
+    small_ratios = options_small_slice(mtt, small_ad, X, obs, genes, rows,
+                                       cols)
+    log(f"(h) options at full width (seconds, peak device memory in GiB, "
+        f"cascade launches, against (c)/(e)): {json.dumps(options)} | small "
+        f"slice card vs CPU, coefficients agree (rtol 1e-4), median SE "
+        f"ratio: {json.dumps(small_ratios)} | phase (h) "
+        f"{time.perf_counter() - t0:.1f} s | {card}")
 
     # ---- (b) kernel against its plain version on each main path's tile ----
     counts_np, weights_np, n_obs_np = main_path_tile(adata, HYPER_RELATIVE)

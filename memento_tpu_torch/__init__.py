@@ -12,7 +12,7 @@ Public API (the JAX package's names):
   setup_memento, create_groups, get_groups, compute_1d_moments,
   ht_1d_moments, get_1d_moments, get_1d_ht_result (per gene);
   compute_2d_moments, ht_2d_moments, get_2d_moments, get_2d_ht_result
-  (per gene pair); get_corr_matrix
+  (per gene pair); get_corr_matrix; prepare_to_save
 """
 
 from .api import (
@@ -27,6 +27,7 @@ from .api import (
     get_groups,
     ht_1d_moments,
     ht_2d_moments,
+    prepare_to_save,
     setup_memento,
 )
 from .containers import AnnData, ColumnTable
@@ -46,6 +47,7 @@ __all__ = [
     "get_2d_moments",
     "get_2d_ht_result",
     "get_corr_matrix",
+    "prepare_to_save",
     "AnnData",
     "ColumnTable",
 ]

@@ -14,10 +14,19 @@ Host stages are float64, through the native C++ layer (``native/``) where
 the JAX package takes it, else numpy/scipy; the tests and the correlation
 matrix run on the device given to ``ht_1d_moments`` / ``ht_2d_moments`` /
 ``get_corr_matrix`` (default ``cuda``).
+
+The options of the JAX package's tests are all here but its multi-device
+ones (``mesh``, ``distributed``, which raise): every sampler, custom
+``(fn_1d, fn_cov)`` estimator tuples (the reference's calling convention),
+per-gene and per-pair treatments (``treatment_for_gene``, eQTL mode) and
+block-wise checkpoint/resume (``checkpoint_dir``).  ``prepare_to_save``
+makes ``uns['memento']`` serializable.
 """
 
 from __future__ import annotations
 
+import hashlib
+import pickle
 import warnings
 
 import numpy as np
@@ -31,6 +40,7 @@ from .ops import estimators as est
 from .ops.corr import corr_matrix_device, cov_sparse_pairs
 from .ops.mv_regression import fit_mv_regressor
 from .ops.size_factor import bin_size_factor, estimate_size_factor
+from .utils.blocks import run_blocks
 
 __all__ = [
     "setup_memento",
@@ -45,6 +55,7 @@ __all__ = [
     "ht_2d_moments",
     "get_2d_moments",
     "get_2d_ht_result",
+    "prepare_to_save",
 ]
 
 RESULT_COLUMNS = ["gene", "tx", "de_coef", "de_se", "de_pval", "dv_coef",
@@ -73,19 +84,29 @@ def _obs_mean(X):
     return np.asarray(X.mean(axis=0)).ravel()
 
 
-def _model(uns) -> est.NoiseModel:
-    model = est.get_noise_model(uns["estimator_type"])
+def _require_model(uns):
+    """``(model, custom_1d)``: the registry model and None, or, for a custom
+    ``(fn_1d, fn_cov)`` tuple, ``HYPER_RELATIVE`` (unused on the custom
+    path) and ``fn_1d``."""
+    et = uns["estimator_type"]
+    model = est.get_noise_model(et)
     if model is None:
-        raise NotImplementedError(
-            "custom (fn_1d, fn_cov) estimators are not ported yet")
-    return model
+        return est.HYPER_RELATIVE, et[0]
+    return model, None
 
 
 def _observed_moments(uns, X, n_obs, q, size_factor):
-    model = _model(uns)
-    if not model.relative:
-        size_factor = np.ones(n_obs)
-    m, v = est.mean_var_sparse(X, size_factor, q, model)
+    """Observed ``[mean, var]`` per gene: the registry model's, or a custom
+    tuple's ``fn_1d`` on the sparse matrix (the reference's convention)."""
+    et = uns["estimator_type"]
+    model = est.get_noise_model(et)
+    if model is None:
+        m, v = et[0](data=X.tocsc(), n_obs=n_obs, q=q,
+                     size_factor=size_factor)[:2]
+    else:
+        if not model.relative:
+            size_factor = np.ones(n_obs)
+        m, v = est.mean_var_sparse(X, size_factor, q, model)
     return [np.asarray(m), np.asarray(v)]
 
 
@@ -318,9 +339,13 @@ def get_corr_matrix(adata, group, mesh=None, device=None):
         raise NotImplementedError(
             "get_corr_matrix over a device mesh is not ported yet")
     uns = adata.uns["memento"]
+    model = est.get_noise_model(uns["estimator_type"])
+    if model is None:
+        raise NotImplementedError(
+            "get_corr_matrix requires a registry estimator_type")
     return corr_matrix_device(
         uns["group_cells"][group], uns["size_factor"][group],
-        uns["group_q"][group], uns["1d_moments"][group][1], _model(uns),
+        uns["group_q"][group], uns["1d_moments"][group][1], model,
         device=device)
 
 
@@ -337,13 +362,15 @@ def _corr_from_cov_np(cov, var_1, var_2):
 
 def compute_2d_moments(adata, gene_pairs, inplace=True):
     """Observed covariance and correlation of each ``(gene_1, gene_2)`` name
-    pair in every group."""
+    pair in every group (a custom tuple's ``fn_cov`` on the sparse matrix,
+    with ``idx1``/``idx2``, for a custom estimator)."""
     if not inplace:
         adata = adata.copy()
     uns = adata.uns["memento"]
     if "size_factor" not in uns:
         _bin_size_factor_uns(adata)
-    model = _model(uns)
+    et = uns["estimator_type"]
+    model = est.get_noise_model(et)
 
     mapping = {name: i for i, name in enumerate(adata.var.index)}
     idx1 = np.array([mapping[a] for a, _ in gene_pairs], dtype=int)
@@ -353,10 +380,15 @@ def compute_2d_moments(adata, gene_pairs, inplace=True):
 
     for g in uns["groups"]:
         cells = uns["group_cells"][g]
-        sf = uns["size_factor"][g] if model.relative \
-            else np.ones(cells.shape[0])
-        cov = cov_sparse_pairs(cells, sf, uns["group_q"][g], idx1, idx2,
-                               model)
+        if model is None:
+            cov = np.asarray(et[1](
+                data=cells.tocsc(), n_obs=cells.shape[0], q=uns["group_q"][g],
+                size_factor=uns["size_factor"][g], idx1=idx1, idx2=idx2))
+        else:
+            sf = uns["size_factor"][g] if model.relative \
+                else np.ones(cells.shape[0])
+            cov = cov_sparse_pairs(cells, sf, uns["group_q"][g], idx1, idx2,
+                                   model)
         var_1 = uns["1d_moments"][g][1][idx1]
         var_2 = uns["1d_moments"][g][1][idx2]
         uns["2d_moments"][g] = {
@@ -364,6 +396,50 @@ def compute_2d_moments(adata, gene_pairs, inplace=True):
             "var_1": var_1, "var_2": var_2}
     if not inplace:
         return adata
+
+
+def _ckpt_meta(uns, item_key: str, seed, num_boot, resampling, approx):
+    """Run fingerprint stored in checkpoint blocks: a resumed block from a
+    different dataset, item list, seed or bootstrap setting raises."""
+    h = hashlib.sha256()
+    h.update(item_key.encode())
+    h.update(",".join(map(str, uns["groups"])).encode())
+    h.update(str([uns["group_cells"][g].shape
+                  for g in uns["groups"]]).encode())
+    return {
+        "seed": int(seed),
+        "num_boot": int(num_boot),
+        "resampling": str(resampling),
+        "approx": bool(approx),
+        "data": h.hexdigest()[:16],
+    }
+
+
+def _per_item_treatment(treatment, treatment_for_item, keys, n_groups):
+    """Zero-padded per-item treatments ``[I, R, Kmax]`` and the number of
+    tested columns of each item, from ``treatment_for_item[key]`` (the
+    treatment column names of that gene or gene pair)."""
+    values, names = _table_values(treatment)
+    kmax = max(len(v) for v in treatment_for_item.values())
+    tens = np.zeros((len(keys), n_groups, kmax))
+    nt = np.zeros(len(keys), dtype=int)
+    for i, key in enumerate(keys):
+        cols = [names.index(c) for c in treatment_for_item[key]]
+        nt[i] = len(cols)
+        tens[i, :, :nt[i]] = values[:, cols]
+    return tens, nt
+
+
+def _run_items(n_items, run_block, checkpoint_dir, checkpoint_block, name,
+               verbose, meta):
+    """All items in one block, or in checkpointed blocks of
+    ``checkpoint_block``; block ``b``'s seed folds its start (the caller's
+    ``run_block``), so a resumed run equals an uninterrupted one."""
+    if checkpoint_dir is None:
+        return run_block(0, n_items)
+    return run_blocks(n_items, checkpoint_block, run_block,
+                      checkpoint_dir=checkpoint_dir, name=name,
+                      verbose=verbose, meta=meta())
 
 
 def ht_1d_moments(
@@ -380,8 +456,12 @@ def ht_1d_moments(
     resample_rep=False,
     sampler="auto",
     tile_size=None,
+    boot_chunk=1024,
     seed=0,
     checkpoint_dir=None,
+    checkpoint_block=4096,
+    mesh=None,
+    distributed=False,
     device=None,
     **kwargs,
 ):
@@ -389,19 +469,21 @@ def ht_1d_moments(
 
     ``covariate`` and ``treatment`` are per-group tables aligned to
     ``uns['memento']['groups']``: ColumnTables, anything with
-    ``.values``/``.columns`` (a pandas DataFrame), or 2-D arrays.  The tests
-    run on ``device`` (default ``cuda``; ``'cpu'`` runs the plain tensor
-    path on the CPU).
+    ``.values``/``.columns`` (a pandas DataFrame), or 2-D arrays.
+    ``treatment_for_gene`` optionally maps each gene name to the treatment
+    columns tested for it (eQTL mode).  With ``checkpoint_dir``, genes run in
+    blocks of ``checkpoint_block`` saved as ``.npz``; a later call resumes at
+    the first missing block.  The tests run on ``device`` (default ``cuda``;
+    ``'cpu'`` runs the plain tensor path on the CPU).  ``mesh`` and
+    ``distributed`` (multi-GPU) are not ported yet and raise.
     """
-    if treatment_for_gene is not None or checkpoint_dir is not None:
-        raise NotImplementedError(
-            "treatment_for_gene and checkpoint_dir are not ported yet")
     if not inplace:
         adata = adata.copy()
     uns = adata.uns["memento"]
-    model = _model(uns)
+    model, custom_1d = _require_model(uns)
     groups = uns["groups"]
-    g = adata.n_vars
+    gene_names = np.asarray(adata.var.index)
+    g = len(gene_names)
 
     true_mean = np.stack([uns["1d_moments"][grp][0] for grp in groups])
     true_res_var = np.stack([uns["1d_moments"][grp][2] for grp in groups])
@@ -409,37 +491,60 @@ def ht_1d_moments(
                           for grp in groups])
     q = np.array([uns["group_q"][grp] for grp in groups])
     cov_values, _ = _table_values(covariate)
-    treat_values, _ = _table_values(treatment)
+    treat_values, tx_names = _table_values(treatment)
+    if treatment_for_gene is None:
+        treat_arg = treat_values
+        nt_per_gene = np.full(g, len(tx_names))
+    else:
+        treat_arg, nt_per_gene = _per_item_treatment(
+            treatment, treatment_for_gene, gene_names, len(groups))
 
-    res = run_ht_1d(
-        seed=fold_seed(seed, 0),  # gene block start 0
-        groups=[uns["group_cells"][grp] for grp in groups],
-        approx_sf=[uns["approx_size_factor"][grp] for grp in groups],
-        true_mean=true_mean,
-        true_res_var=true_res_var,
-        mv_coeffs=mv_coeffs,
-        q=q,
-        covariate=cov_values,
-        treatment=treat_values,
-        num_boot=num_boot,
-        model=model,
-        sampler=sampler,
-        resampling=resampling,
-        approx=approx,
-        resample_rep=resample_rep,
-        tile_size=tile_size,
-        verbose=verbose > 0,
-        device=device,
-    )
+    def run_gene_block(start, stop):
+        sl = slice(start, stop)
+        full = start == 0 and stop == g  # no column copy for one block
+        return run_ht_1d(
+            seed=fold_seed(seed, start),
+            groups=[uns["group_cells"][grp] if full
+                    else uns["group_cells"][grp][:, sl] for grp in groups],
+            approx_sf=[uns["approx_size_factor"][grp] for grp in groups],
+            true_mean=true_mean[:, sl],
+            true_res_var=true_res_var[:, sl],
+            mv_coeffs=mv_coeffs,
+            q=q,
+            covariate=cov_values,
+            treatment=treat_arg[sl] if treat_arg.ndim == 3 else treat_arg,
+            num_boot=num_boot,
+            model=model,
+            sampler=sampler,
+            resampling=resampling,
+            approx=approx,
+            resample_rep=resample_rep,
+            tile_size=tile_size,
+            boot_chunk=boot_chunk,
+            verbose=verbose > 0,
+            custom_1d=custom_1d,
+            mesh=mesh,
+            distributed=distributed,
+            device=device,
+        )
 
-    # [G, Kt] results -> flat per-test arrays, gene-major
-    kt = treat_values.shape[1]
+    res = _run_items(
+        g, run_gene_block, checkpoint_dir, checkpoint_block, "1d_ht",
+        verbose > 0, lambda: _ckpt_meta(uns, ",".join(map(str, gene_names)),
+                                        seed, num_boot, resampling, approx))
+
+    # [G, Kt] results -> flat per-test arrays, gene-major, each gene's
+    # tested columns only
+    tested = np.arange(treat_arg.shape[-1])[None, :] < nt_per_gene[:, None]
     key_map = {"mean_asl": "mean_pval", "var_asl": "var_pval"}
-    uns["1d_ht"] = {"treatment": treatment, "covariate": covariate}
+    uns["1d_ht"] = {}
+    if treatment_for_gene is not None:
+        uns["1d_ht"]["treatment_for_gene"] = treatment_for_gene
+    uns["1d_ht"].update(treatment=treatment, covariate=covariate)
     for name in ["mean_coef", "mean_se", "mean_asl", "var_coef", "var_se",
                  "var_asl"]:
-        src = np.broadcast_to(res[key_map.get(name, name)], (g, kt))
-        uns["1d_ht"][name] = np.array(src, dtype=np.float64).reshape(-1)
+        uns["1d_ht"][name] = np.asarray(res[key_map.get(name, name)],
+                                        dtype=np.float64)[tested]
     if not inplace:
         return adata
 
@@ -458,8 +563,10 @@ def ht_2d_moments(
     resample_rep=False,
     sampler="auto",
     tile_size=None,
+    boot_chunk=1024,
     seed=0,
     checkpoint_dir=None,
+    checkpoint_block=4096,
     mesh=None,
     distributed=False,
     device=None,
@@ -471,16 +578,18 @@ def ht_2d_moments(
     Unordered duplicates of a pair are tested once and every duplicate row
     gets the result; a pair of a gene with itself is skipped (NaN).  The
     result holds one statistic per pair: of a treatment with several columns
-    only the first is tested.  ``covariate``, ``treatment`` and ``device``
-    as in ``ht_1d_moments``.
+    only the first is tested.  ``treatment_for_gene`` maps the unordered
+    gene-name pair (a ``frozenset``) to its treatment columns, of which the
+    first is reported.  Checkpoint blocks run over the deduplicated pairs.
+    ``covariate``, ``treatment``, ``checkpoint_*`` and ``device`` as in
+    ``ht_1d_moments``.
     """
-    if treatment_for_gene is not None or checkpoint_dir is not None:
-        raise NotImplementedError(
-            "treatment_for_gene and checkpoint_dir are not ported yet")
     if not inplace:
         adata = adata.copy()
     uns = adata.uns["memento"]
-    model = _model(uns)
+    model, custom_1d = _require_model(uns)
+    custom_est = (custom_1d, uns["estimator_type"][1]) \
+        if custom_1d is not None else None
     groups = uns["groups"]
 
     gene_idx_1 = uns["2d_moments"]["gene_idx_1"]
@@ -504,42 +613,63 @@ def ht_2d_moments(
     out = {name: np.full(n_conv, np.nan)
            for name in ("corr_coef", "corr_se", "corr_asl")}
     if uniq_pairs:
+        p_idx1 = np.array([pair[0] for pair in uniq_pairs])
+        p_idx2 = np.array([pair[1] for pair in uniq_pairs])
         conv_of_pair = [pair[2] for pair in uniq_pairs]
+        true_corr = np.stack([uns["2d_moments"][grp]["corr"][conv_of_pair]
+                              for grp in groups])
         cov_values, _ = _table_values(covariate)
-        treat_values, _ = _table_values(treatment)
-        if treat_values.shape[1] > 1:
-            # the regression treats columns independently, so column 0's
-            # coefficient, SE and p-value do not depend on the others
-            warnings.warn(
-                f"ht_2d_moments received a {treat_values.shape[1]}-column "
-                "treatment but the 2D result reports only the FIRST "
-                "treatment column; run it once per column",
-                UserWarning, stacklevel=2)
-            treat_values = treat_values[:, :1]
+        if treatment_for_gene is not None:
+            # keyed by the unordered gene-name pair
+            names = np.asarray(adata.var.index)
+            treat_arg, _ = _per_item_treatment(
+                treatment, treatment_for_gene,
+                [frozenset((names[i1], names[i2]))
+                 for i1, i2, _ in uniq_pairs], len(groups))
+        else:
+            treat_arg, _ = _table_values(treatment)
+            if treat_arg.shape[1] > 1:
+                # the regression treats columns independently, so column
+                # 0's coefficient, SE and p-value do not depend on the others
+                warnings.warn(
+                    f"ht_2d_moments received a {treat_arg.shape[1]}-column "
+                    "treatment but the 2D result reports only the FIRST "
+                    "treatment column; run it once per column",
+                    UserWarning, stacklevel=2)
+                treat_arg = treat_arg[:, :1]
 
-        res = run_ht_2d(
-            seed=fold_seed(seed, 0),  # pair block start 0
-            groups=[uns["group_cells"][grp] for grp in groups],
-            approx_sf=[uns["approx_size_factor"][grp] for grp in groups],
-            idx1=np.array([pair[0] for pair in uniq_pairs]),
-            idx2=np.array([pair[1] for pair in uniq_pairs]),
-            true_corr=np.stack([uns["2d_moments"][grp]["corr"][conv_of_pair]
-                                for grp in groups]),
-            q=np.array([uns["group_q"][grp] for grp in groups]),
-            covariate=cov_values,
-            treatment=treat_values,
-            num_boot=int(num_boot),
-            model=model,
-            sampler=sampler,
-            resampling=resampling,
-            approx=approx,
-            resample_rep=resample_rep,
-            tile_size=tile_size,
-            verbose=verbose > 0,
-            mesh=mesh,
-            distributed=distributed,
-            device=device,
-        )
+        def run_pair_block(start, stop):
+            sl = slice(start, stop)
+            return run_ht_2d(
+                seed=fold_seed(seed, start),
+                groups=[uns["group_cells"][grp] for grp in groups],
+                approx_sf=[uns["approx_size_factor"][grp] for grp in groups],
+                idx1=p_idx1[sl],
+                idx2=p_idx2[sl],
+                true_corr=true_corr[:, sl],
+                q=np.array([uns["group_q"][grp] for grp in groups]),
+                covariate=cov_values,
+                treatment=treat_arg[sl] if treat_arg.ndim == 3 else treat_arg,
+                num_boot=int(num_boot),
+                model=model,
+                sampler=sampler,
+                resampling=resampling,
+                approx=approx,
+                resample_rep=resample_rep,
+                tile_size=tile_size,
+                boot_chunk=boot_chunk,
+                verbose=verbose > 0,
+                custom_est=custom_est,
+                mesh=mesh,
+                distributed=distributed,
+                device=device,
+            )
+
+        res = _run_items(
+            len(uniq_pairs), run_pair_block, checkpoint_dir, checkpoint_block,
+            "2d_ht", verbose > 0, lambda: _ckpt_meta(
+                uns, ",".join(f"{a}:{b}" for a, b, _ in uniq_pairs), seed,
+                num_boot, resampling, approx))
         # broadcast each unique pair's result to all its duplicates
         for u, (i1, i2, _) in enumerate(uniq_pairs):
             rows = idx_mapping[frozenset((i1, i2))]
@@ -547,7 +677,10 @@ def ht_2d_moments(
             out["corr_se"][rows] = res["corr_se"][u, 0]
             out["corr_asl"][rows] = res["corr_pval"][u, 0]
 
-    uns["2d_ht"] = {"treatment": treatment, "covariate": covariate, **out}
+    uns["2d_ht"] = {}
+    if treatment_for_gene is not None:
+        uns["2d_ht"]["treatment_for_gene"] = treatment_for_gene
+    uns["2d_ht"].update(treatment=treatment, covariate=covariate, **out)
     if not inplace:
         return adata
 
@@ -605,14 +738,18 @@ def get_1d_moments(adata, groupby=None):
 
 def get_1d_ht_result(adata) -> ColumnTable:
     """1D test results: one row per (gene, treatment column) with columns
-    ``gene, tx, de_coef, de_se, de_pval, dv_coef, dv_se, dv_pval``."""
+    ``gene, tx, de_coef, de_se, de_pval, dv_coef, dv_se, dv_pval``; with
+    ``treatment_for_gene``, each gene's own columns."""
     uns = adata.uns["memento"]
     ht = uns["1d_ht"]
-    _, tx_names = _table_values(ht["treatment"])
     genes = np.asarray(adata.var.index)
+    if "treatment_for_gene" in ht:
+        tx = [list(ht["treatment_for_gene"][gene]) for gene in genes]
+    else:
+        tx = [_table_values(ht["treatment"])[1]] * len(genes)
     return ColumnTable({
-        "gene": np.repeat(genes, len(tx_names)),
-        "tx": np.tile(np.asarray(tx_names), len(genes)),
+        "gene": np.repeat(genes, [len(cols) for cols in tx]),
+        "tx": np.array([c for cols in tx for c in cols]),
         "de_coef": ht["mean_coef"],
         "de_se": ht["mean_se"],
         "de_pval": ht["mean_asl"],
@@ -669,3 +806,15 @@ def get_2d_ht_result(adata) -> ColumnTable:
     result["corr_se"] = uns["2d_ht"]["corr_se"]
     result["corr_pval"] = uns["2d_ht"]["corr_asl"]
     return result
+
+
+def prepare_to_save(adata, keep=False):
+    """Make ``uns['memento']`` serializable: drop the mv-regressor fits, or
+    with ``keep`` store each as the string of its pickle."""
+    uns = adata.uns["memento"]
+    for group in uns["groups"] + ["all"]:
+        if not keep:
+            del uns["mv_regressor"][group]
+        else:
+            uns["mv_regressor"][group] = str(
+                pickle.dumps(uns["mv_regressor"][group]))

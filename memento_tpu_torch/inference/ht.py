@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from ..device import fold_seed, generator, resolve_device
-from ..ops.bootstrap import SAMPLERS, bootstrap_1d, bootstrap_2d
+from ..ops.bootstrap import (SAMPLERS, bootstrap_1d, bootstrap_1d_custom,
+                             bootstrap_2d, bootstrap_2d_custom)
 from ..ops.estimators import NoiseModel, corr_from_cov
 from ..ops.mv_regression import residual_variance
 from ..utils import profiling
@@ -82,6 +83,26 @@ def _nanstd(x):
     return torch.sqrt(torch.nanmean((x - m) ** 2, dim=-1))
 
 
+# Samplers drawn per (group, replicate chunk) with their own seeds; the
+# cascade samplers draw every group of the tile in one call.
+_CHUNKED = ("multinomial", "poisson", "gaussian")
+
+
+def _chunked(b: int, boot_chunk: int, r: int, draw):
+    """``draw(group, n, seed_coords)`` for each chunk of ``n`` replicates
+    and each of ``r`` groups: the chunks' ``[..., n]`` results per output,
+    stacked over groups, concatenated over chunks and trimmed to ``b``."""
+    n_chunks = max(1, -(-b // boot_chunk))
+    bc = -(-b // n_chunks)  # chunk size; b padded to n_chunks * bc
+    chunks = [[draw(ri, bc, (0, ri, ci)) for ri in range(r)]
+              for ci in range(n_chunks)]
+    n_out = len(chunks[0][0])
+    return tuple(
+        torch.cat([torch.stack([grp[k] for grp in chunk]) for chunk in chunks],
+                  -1)[..., :b]
+        for k in range(n_out))
+
+
 def _decode_inv_sf(inv_sf, inv_sf_sq, sf_binned: bool, dev):
     """Float32 ``(inv_sf, inv_sf_sq)`` ``[R, T, U]`` on ``dev`` from either
     transport form: the two float arrays, or (``sf_binned``) uint8 bin ids
@@ -118,6 +139,8 @@ def ht_1d_tile(
     resampling: str = "bootstrap",
     approx: bool = False,
     resample_rep: bool = False,
+    boot_chunk: int = 1024,
+    custom_1d=None,
     sf_binned: bool = False,
     treat_padded: bool = False,
     device=None,
@@ -128,6 +151,13 @@ def ht_1d_tile(
     ``device`` (default ``cuda``) and are computed in float32.  ``seed`` is
     the tile's derived seed; the stages fold it further (0: bootstrap,
     (1, 0)/(1, 1): mean/variance fill, 2: replicate resampling).
+
+    The cascade samplers resample every group of the tile in one call.  The
+    ``multinomial``, ``poisson`` and ``gaussian`` samplers run per group and
+    per chunk of at most ``boot_chunk`` replicates, seeded by (0, group,
+    chunk).  A user estimator ``custom_1d`` runs per group on exact
+    multinomial draws (or the named materialized sampler), seeded by
+    (0, group).
 
     Returns a dict of ``[T, Kt]`` tensors (observed coefficients, bootstrap
     SEs, first-stage p-values, GEV flags) and the full coefficient tensors
@@ -150,9 +180,22 @@ def ht_1d_tile(
     covariate = f32(covariate)
     treatment = f32(treatment)
 
-    boot_mean_raw, boot_var_raw = bootstrap_1d(
-        values, counts, inv_sf, inv_sf_sq, n_obs[:, None], q[:, None], model,
-        num_boot, fold_seed(seed, 0), sampler)  # [R, T, B]
+    r = values.shape[0]
+    if custom_1d is not None:
+        groups = [bootstrap_1d_custom(
+            custom_1d, values[ri], counts[ri], inv_sf[ri], inv_sf_sq[ri],
+            n_obs[ri], q[ri], num_boot, fold_seed(seed, 0, ri), sampler)
+            for ri in range(r)]
+        boot_mean_raw, boot_var_raw = (torch.stack(x) for x in zip(*groups))
+    elif sampler in _CHUNKED:
+        boot_mean_raw, boot_var_raw = _chunked(
+            num_boot, boot_chunk, r, lambda ri, bc, at: bootstrap_1d(
+                values[ri], counts[ri], inv_sf[ri], inv_sf_sq[ri], n_obs[ri],
+                q[ri], model, bc, fold_seed(seed, *at), sampler))
+    else:
+        boot_mean_raw, boot_var_raw = bootstrap_1d(
+            values, counts, inv_sf, inv_sf_sq, n_obs[:, None], q[:, None],
+            model, num_boot, fold_seed(seed, 0), sampler)  # [R, T, B]
 
     res_var = residual_variance(boot_mean_raw, boot_var_raw,
                                 mv_coeffs[:, None, :])
@@ -254,9 +297,10 @@ def ht_2d_tile(
     resampling: str = "bootstrap",
     approx: bool = False,
     resample_rep: bool = False,
+    boot_chunk: int = 1024,
+    custom_est=None,
     sf_binned: bool = False,
     treat_padded: bool = False,
-    custom_est=None,
     device=None,
 ):
     """Differential-correlation test for one tile of gene pairs.
@@ -267,18 +311,17 @@ def ht_2d_tile(
     then the stages (0: bootstrap, 1: fill, 2: replicate resampling).
 
     One joint resample per (group, pair) gives the replicate covariance and
-    both variances (W = 5 sums).  A replicate with an invalid variance is
-    the sentinel correlation 1.0 and stays in the null; only non-finite
-    replicates are refilled.  A group whose observed correlation is not
-    finite or has |corr| == 1 is dropped for that pair (zero weight).
+    both variances (W = 5 sums).  Samplers, ``boot_chunk`` and the user
+    estimators ``custom_est = (fn_1d, fn_cov)`` as in ``ht_1d_tile``.  A
+    replicate with an invalid variance is the sentinel correlation 1.0 and
+    stays in the null; only non-finite replicates are refilled.  A group
+    whose observed correlation is not finite or has |corr| == 1 is dropped
+    for that pair (zero weight).
 
     Returns a dict of ``[P, Kt]`` tensors (observed coefficient, bootstrap
     SE, first-stage p-value, GEV flags) and the full coefficient tensor
     ``[P, Kt, B+1]`` for the host tail refinement.
     """
-    if custom_est is not None:
-        raise NotImplementedError(
-            "custom (fn_1d, fn_cov) estimators are not ported yet")
     dev = resolve_device(device)
     seed = fold_seed(seed, _PATH_2D)
 
@@ -295,10 +338,23 @@ def ht_2d_tile(
     covariate = f32(covariate)
     treatment = f32(treatment)
 
-    cov, var_1, var_2 = bootstrap_2d(
-        values_1, values_2, counts, inv_sf, inv_sf_sq, n_obs[:, None],
-        q[:, None], model, num_boot, fold_seed(seed, 0), sampler)  # [R, P, B]
-    boot_corr_raw = corr_from_cov(cov, var_1, var_2)
+    r = values_1.shape[0]
+    if custom_est is not None:
+        groups = [bootstrap_2d_custom(
+            *custom_est, values_1[ri], values_2[ri], counts[ri], inv_sf[ri],
+            inv_sf_sq[ri], n_obs[ri], q[ri], num_boot, fold_seed(seed, 0, ri),
+            sampler) for ri in range(r)]
+        boot_corr_raw = corr_from_cov(*(torch.stack(x) for x in zip(*groups)))
+    elif sampler in _CHUNKED:
+        boot_corr_raw, = _chunked(
+            num_boot, boot_chunk, r, lambda ri, bc, at: (corr_from_cov(
+                *bootstrap_2d(values_1[ri], values_2[ri], counts[ri],
+                              inv_sf[ri], inv_sf_sq[ri], n_obs[ri], q[ri],
+                              model, bc, fold_seed(seed, *at), sampler)),))
+    else:
+        boot_corr_raw = corr_from_cov(*bootstrap_2d(
+            values_1, values_2, counts, inv_sf, inv_sf_sq, n_obs[:, None],
+            q[:, None], model, num_boot, fold_seed(seed, 0), sampler))
 
     filled_corr, corr_dead = fill_invalid(
         generator(fold_seed(seed, 1), dev), boot_corr_raw,
@@ -474,20 +530,22 @@ DEFAULT_MAX_PENDING = 3
 
 def _resolve_sampler(sampler: str, device: torch.device) -> str:
     """``'auto'`` -> the CUDA kernel on a CUDA device, the plain cascade on
-    the CPU; ``'cascade'`` asks for the plain version explicitly."""
+    the CPU; any other sampler the caller names is the one that runs."""
     if sampler == "auto":
         return "cascade_cuda" if device.type == "cuda" else "cascade"
     if sampler not in SAMPLERS:
-        raise NotImplementedError(
-            f"sampler {sampler!r} is not ported yet; options: "
-            f"{('auto',) + SAMPLERS}")
+        raise ValueError(f"unknown sampler {sampler!r}; options: "
+                         f"{('auto',) + SAMPLERS}")
     return sampler
 
 
-def _refuse_unported(custom, mesh, distributed: bool) -> None:
-    if custom is not None or mesh is not None or distributed:
-        raise NotImplementedError(
-            "custom estimators, mesh and distributed runs are not ported yet")
+def _refuse_unported(mesh, distributed: bool) -> None:
+    """Multi-GPU runs are a later slice of the port."""
+    for name, given in (("mesh", mesh is not None),
+                        ("distributed", bool(distributed))):
+        if given:
+            raise NotImplementedError(
+                f"{name} (multi-GPU) runs are not ported yet")
 
 
 def _sf_transport(comps, csl, u: int, t: int):
@@ -618,6 +676,7 @@ def run_ht_1d(
     approx: bool = False,
     resample_rep: bool = False,
     tile_size: Optional[int] = None,
+    boot_chunk: int = 1 << 30,
     verbose: bool = False,
     groups: Optional[Sequence] = None,  # list of [Nc_r, G] sparse CSC
     approx_sf: Optional[Sequence] = None,  # list of [Nc_r] quantized factors
@@ -636,12 +695,14 @@ def run_ht_1d(
         previous tile.
 
     Each tile's seed is ``fold_seed(seed, tile start)``, so results do not
-    depend on the tiling order.
+    depend on the tiling order.  ``boot_chunk`` bounds the replicates drawn
+    at once by the per-group samplers, ``custom_1d`` is a user estimator
+    (see ``ht_1d_tile``).
 
     Returns a dict of ``[G, Kt]`` float64 arrays: mean_coef/se/pval,
     var_coef/se/pval.
     """
-    _refuse_unported(custom_1d, mesh, distributed)
+    _refuse_unported(mesh, distributed)
     from ..ops.compress import compress_group
 
     dev = resolve_device(device)
@@ -711,6 +772,7 @@ def run_ht_1d(
             num_boot=num_boot, model=model, sampler=sampler,
             one_sample=one_sample, resampling=resampling,
             approx=approx, resample_rep=resample_rep,
+            boot_chunk=min(boot_chunk, num_boot), custom_1d=custom_1d,
             treat_padded=per_gene_treatment, device=dev, **static)
 
     return _run_tiles(
@@ -735,6 +797,7 @@ def run_ht_2d(
     approx: bool = False,
     resample_rep: bool = False,
     tile_size: Optional[int] = None,
+    boot_chunk: int = 1 << 30,
     verbose: bool = False,
     groups: Optional[Sequence] = None,  # list of [Nc_r, G] sparse CSC
     approx_sf: Optional[Sequence] = None,  # list of [Nc_r] quantized factors
@@ -756,11 +819,12 @@ def run_ht_2d(
         (``compress_pairs``) on the prefetch thread.
 
     Each tile's seed is ``fold_seed(seed, tile start)``; ``ht_2d_tile`` folds
-    the 2D path constant into it.
+    the 2D path constant into it.  ``boot_chunk`` and the user estimators
+    ``custom_est = (fn_1d, fn_cov)`` as in ``run_ht_1d``.
 
     Returns a dict of ``[P, Kt]`` float64 arrays: corr_coef/se/pval.
     """
-    _refuse_unported(custom_est, mesh, distributed)
+    _refuse_unported(mesh, distributed)
     from ..ops.compress import compress_pairs
 
     dev = resolve_device(device)
@@ -826,6 +890,7 @@ def run_ht_2d(
             num_boot=num_boot, model=model, sampler=sampler,
             one_sample=one_sample, resampling=resampling,
             approx=approx, resample_rep=resample_rep,
+            boot_chunk=min(boot_chunk, num_boot), custom_est=custom_est,
             treat_padded=per_pair_treatment, device=dev, **static)
 
     return _run_tiles(

@@ -14,8 +14,9 @@ through three sufficient statistics per gene::
 Observed moments are computed once per group on the host in float64, in one
 native pass (``native/suffstats.cpp``) or with scipy; the bootstrap
 replicates contract the same per-bin weights on the device
-(``ops/bootstrap.py``), where ``corr_from_cov`` turns replicate covariances
-into correlations.
+(``ops/bootstrap.py``: fused with the resampling, or over materialized draws
+with ``mean_var_compressed`` / ``cov_compressed``), where ``corr_from_cov``
+turns replicate covariances into correlations.
 """
 
 from __future__ import annotations
@@ -138,6 +139,69 @@ def mean_var_sparse(X, size_factor, q,
     return np.asarray(m), np.asarray(v)
 
 
+def bootstrap_weights_1d(values, inv_sf, inv_sf_sq, q, model: NoiseModel):
+    """Per-bin weights of the replicate moment contraction (tensors):
+    ``a_u = x_u inv_sf_u`` for M1 and ``d_u = (x_u^2 - c x_u) inv_sf_sq_u``
+    for M2, with ``q`` a number or broadcastable to the batch ``[...]``.
+
+    Returns:
+      (a, d): ``[..., U]``.
+    """
+    q = torch.as_tensor(q, dtype=values.dtype, device=values.device)
+    c = model.var_correction(q)
+    if c.dim():
+        c = c[..., None]
+    a = values * inv_sf
+    d = (values * values - c * values) * inv_sf_sq
+    return a, d
+
+
+def _per_row(n_obs, like):
+    """``n_obs`` (a number or ``[...]``) as a tensor that divides
+    ``[..., B]``."""
+    n = torch.as_tensor(n_obs, dtype=like.dtype, device=like.device)
+    return n[..., None]
+
+
+def mean_var_compressed(values, counts, inv_sf, inv_sf_sq, n_obs, q,
+                        model: NoiseModel):
+    """Replicate moments from compressed (value, count) tuples.
+
+    Args:
+      values, inv_sf, inv_sf_sq: ``[..., U]``.
+      counts: ``[..., U, B]`` multiplicities per bootstrap replicate.
+      n_obs, q: cells and capture efficiency, numbers or ``[...]``.
+
+    Returns:
+      (mean, var): ``[..., B]``.
+    """
+    n = _per_row(n_obs, counts)
+    a, d = bootstrap_weights_1d(values, inv_sf, inv_sf_sq, q, model)
+    m1 = torch.einsum("...u,...ub->...b", a, counts) / n
+    if model.mean_only:
+        return m1 + 1.0, torch.full_like(m1, 10.0)
+    m2 = torch.einsum("...u,...ub->...b", d, counts) / n
+    return m1, m2 - m1 * m1
+
+
+def cov_compressed(v1, v2, counts, inv_sf, inv_sf_sq, n_obs):
+    """Replicate covariance from jointly compressed pair tuples (no
+    diagonal correction: the two genes of a tested pair are distinct).
+
+    Args:
+      v1, v2, inv_sf, inv_sf_sq: ``[..., U]``.
+      counts: ``[..., U, B]``.
+
+    Returns:
+      cov ``[..., B]``.
+    """
+    n = _per_row(n_obs, counts)
+    m1 = torch.einsum("...u,...ub->...b", v1 * inv_sf, counts) / n
+    m2 = torch.einsum("...u,...ub->...b", v2 * inv_sf, counts) / n
+    mx = torch.einsum("...u,...ub->...b", v1 * v2 * inv_sf_sq, counts) / n
+    return mx - m1 * m2
+
+
 def corr_from_cov(cov, var_1, var_2):
     """Covariance -> correlation on tensors, with the sentinel semantics of
     ``memento_tpu/ops/estimators.py::corr_from_cov``: an entry whose variance
@@ -166,5 +230,8 @@ __all__ = [
     "suffstats_sparse",
     "suffstats_scipy",
     "mean_var_sparse",
+    "bootstrap_weights_1d",
+    "mean_var_compressed",
+    "cov_compressed",
     "corr_from_cov",
 ]

@@ -20,6 +20,18 @@ against on the card.  Padded bins (count 0) draw 0.
 ``fused_bootstrap_sums`` takes its random numbers from a ``torch.Generator``;
 ``fused_bootstrap_sums_philox`` is the same cascade on the kernel's own
 Philox stream (``ops/philox.py``), for comparing the two draw by draw.
+
+The JAX package's other samplers run on PyTorch's own random operations, as
+they run on ``jax.random`` outside any kernel there:
+
+- ``'multinomial'``: the exact chain of conditional binomials
+  (``torch.binomial``), fused with the contraction
+  (``fused_bootstrap_sums(..., sampler="multinomial")``) or materialized
+  (``bootstrap_counts``); every replicate conserves its total exactly;
+- ``'poisson'``: independent Poisson counts with the observed means;
+- ``'gaussian'``: the multinomial's marginal mean and variance, clamped at 0.
+
+The last two are materialized only (``bootstrap_counts``).
 """
 
 from __future__ import annotations
@@ -118,9 +130,7 @@ def _cascade_sums(counts, weights, n_obs, num_boot: int, randoms):
     sums = torch.zeros(*batch, weights.shape[-1], num_boot,
                        dtype=torch.float32, device=dev)
     # bins past the last occupied one draw exactly 0 in every row
-    occupied = (counts > 0).reshape(-1, counts.shape[-1]).any(0)
-    n_bins = int(occupied.nonzero().max()) + 1 if bool(occupied.any()) else 0
-    for u in range(n_bins):
+    for u in range(_occupied_bins(counts)):
         z, u01 = randoms(u, counts[..., u])
         n_u = _approx_binomial_step(z, u01, remaining, ctail[..., u],
                                     ratio[..., u], counts[..., u],
@@ -130,7 +140,86 @@ def _cascade_sums(counts, weights, n_obs, num_boot: int, randoms):
     return sums
 
 
-def fused_bootstrap_sums(counts, weights, n_obs, num_boot: int, seed: int):
+def _occupied_bins(counts) -> int:
+    """One past the last bin occupied in any row (later bins draw 0)."""
+    occupied = (counts > 0).reshape(-1, counts.shape[-1]).any(0)
+    return int(occupied.nonzero().max()) + 1 if bool(occupied.any()) else 0
+
+
+def _binomial_chain(counts, n_obs, num_boot: int, gen):
+    """The exact multinomial resample as a chain of conditional binomials:
+    yields ``(u, n_u)`` with bin ``u``'s draws ``[..., B]`` for every bin up
+    to the last occupied one.  ``p`` is the bin's share of the tail
+    (``conditional_ratios``), clipped to ``[1e-7, 1 - 1e-7]`` for the draw;
+    a bin with ``p >= 1 - 1e-6`` takes every remaining trial, and ``p <= 0``
+    or no trial left draws 0, as in the JAX package."""
+    batch = counts.shape[:-1]
+    n_rows = torch.broadcast_to(
+        torch.as_tensor(n_obs, dtype=torch.float32, device=counts.device),
+        batch)
+    _, ratio = conditional_ratios(counts)
+    p_draw = torch.clamp(ratio, 1e-7, 1.0 - 1e-7)
+    absorb = ratio >= 1.0 - 1e-6
+    empty = ratio <= 0.0
+    remaining = n_rows[..., None].expand(*batch, num_boot).clone()
+    for u in range(_occupied_bins(counts)):
+        draw = torch.binomial(remaining,
+                              p_draw[..., u, None].expand_as(remaining),
+                              generator=gen)
+        n_u = torch.where(absorb[..., u, None], remaining, draw)
+        n_u = torch.where(empty[..., u, None] | (remaining <= 0), 0.0, n_u)
+        yield u, n_u
+        remaining = remaining - n_u
+
+
+def bootstrap_counts(counts, n_obs, num_boot: int, sampler: str, gen):
+    """Materialized bootstrap multiplicities of padded unique-value tiles.
+
+    Args:
+      counts: ``[..., U]`` observed multiplicities (pads are 0).
+      n_obs: total trials per row, broadcastable to ``counts.shape[:-1]``.
+      num_boot: replicates B.
+      sampler: ``'multinomial'``, ``'poisson'`` or ``'gaussian'``.
+      gen: ``torch.Generator`` on ``counts.device``.
+
+    Returns:
+      ``[..., U, B]`` float32 draws; padded bins draw 0 under every sampler.
+    """
+    counts = torch.as_tensor(counts, dtype=torch.float32)
+    shape = (*counts.shape, num_boot)
+    if sampler == "multinomial":
+        draws = torch.zeros(shape, dtype=torch.float32, device=counts.device)
+        for u, n_u in _binomial_chain(counts, n_obs, num_boot, gen):
+            draws[..., u, :] = n_u
+        return draws
+    mean = counts[..., None].expand(shape)
+    if sampler == "poisson":
+        return torch.poisson(mean, generator=gen)
+    if sampler == "gaussian":
+        # the multinomial's marginal moments: mean N p, variance N p (1 - p)
+        n_rows = torch.as_tensor(n_obs, dtype=torch.float32,
+                                 device=counts.device)
+        p = counts / torch.broadcast_to(n_rows, counts.shape[:-1])[..., None]
+        sd = torch.sqrt(torch.clamp_min(counts * (1.0 - p), 0.0))
+        eps = torch.randn(shape, generator=gen, device=counts.device)
+        return torch.clamp_min(mean + eps * sd[..., None], 0.0)
+    raise ValueError(f"unknown sampler {sampler!r}; options: "
+                     "('multinomial', 'poisson', 'gaussian')")
+
+
+def _multinomial_sums(counts, weights, n_obs, num_boot: int, gen):
+    """The exact fused sums: the binomial chain contracted bin by bin."""
+    weights = torch.as_tensor(weights, dtype=torch.float32,
+                              device=counts.device)
+    sums = torch.zeros(*counts.shape[:-1], weights.shape[-1], num_boot,
+                       dtype=torch.float32, device=counts.device)
+    for u, n_u in _binomial_chain(counts, n_obs, num_boot, gen):
+        sums.addcmul_(weights[..., u, :, None], n_u[..., None, :])
+    return sums
+
+
+def fused_bootstrap_sums(counts, weights, n_obs, num_boot: int, seed: int,
+                         sampler: str = "cascade"):
     """Bootstrap-resample and contract, bin by bin.
 
     Args:
@@ -139,12 +228,19 @@ def fused_bootstrap_sums(counts, weights, n_obs, num_boot: int, seed: int):
       n_obs: total trials per row, broadcastable to ``counts.shape[:-1]``.
       num_boot: replicates B.
       seed: derived 64-bit seed (``device.fold_seed``).
+      sampler: ``'cascade'`` (the approximate conditional binomials, the
+        kernel's plain version) or ``'multinomial'`` (exact binomials).
 
     Returns:
       sums ``[..., W, B]`` float32 on ``counts.device``.
     """
     counts = torch.as_tensor(counts, dtype=torch.float32)
     gen = generator(seed, counts.device)
+    if sampler == "multinomial":
+        return _multinomial_sums(counts, weights, n_obs, num_boot, gen)
+    if sampler != "cascade":
+        raise ValueError(f"fused sampler must be 'cascade' or 'multinomial', "
+                         f"got {sampler!r}")
     shape = (*counts.shape[:-1], num_boot)
 
     def randoms(u, lam0):
@@ -195,6 +291,7 @@ __all__ = [
     "CASCADE_K",
     "poisson_cdf_table",
     "conditional_ratios",
+    "bootstrap_counts",
     "fused_bootstrap_sums",
     "fused_bootstrap_sums_philox",
 ]

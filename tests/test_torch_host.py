@@ -263,6 +263,7 @@ def test_sources_import_no_jax_nor_jax_package():
 
 
 ISOLATED = textwrap.dedent("""
+    import os
     import sys
     for name in ("jax", "jaxlib", "memento_tpu", "pandas"):
         sys.modules[name] = None  # any import of these now raises
@@ -311,6 +312,48 @@ ISOLATED = textwrap.dedent("""
     mat = mtt.get_corr_matrix(ad, groups.index[0], device="cpu")
     assert mat.shape == (len(genes), len(genes))
     assert abs(mat[0, 1] - corr_df[groups.index[0]][0]) < 1e-4
+
+    # the options: the exact sampler, eQTL mode, a checkpointed run, and a
+    # custom estimator tuple (observed moments from its sparse branch)
+    import tempfile
+    from memento_tpu_torch.ops import bootstrap
+    tx = groups["condition"][:, None].astype(float)
+    kw = dict(covariate=np.ones((len(groups), 1)), num_boot=64, approx=True,
+              tile_size=64, device="cpu", verbose=0)
+    mtt.ht_1d_moments(ad, treatment=tx, sampler="multinomial", **kw)
+    exact = mtt.get_1d_ht_result(ad)
+    np.testing.assert_allclose(exact["de_coef"], res["de_coef"], rtol=1e-6)
+    two = np.column_stack([tx[:, 0], groups["replicate"].astype(float)])
+    tfg = {g: [0] if i % 2 else [0, 1] for i, g in enumerate(genes)}
+    mtt.ht_1d_moments(ad, treatment=two, treatment_for_gene=tfg, **kw)
+    eqtl = mtt.get_1d_ht_result(ad)
+    assert len(eqtl["gene"]) == sum(len(v) for v in tfg.values())
+    with tempfile.TemporaryDirectory() as ckpt:
+        mtt.ht_1d_moments(ad, treatment=tx, checkpoint_dir=ckpt,
+                          checkpoint_block=8, **kw)
+        assert len(os.listdir(ckpt)) == -(-len(genes) // 8)
+    assert np.isfinite(mtt.get_1d_ht_result(ad)["de_coef"]).all()
+
+    def hyper(data, n_obs, q, size_factor=None):
+        if isinstance(data, tuple):
+            m1 = (data[0] * data[1] * size_factor[0]).sum(axis=0) / n_obs
+            m2 = (data[0] ** 2 * data[1] * size_factor[1] - (1 - q)
+                  * data[0] * data[1] * size_factor[1]).sum(axis=0) / n_obs
+            return [m1, m2 - m1 * m1]
+        w = (1.0 / size_factor).reshape(1, -1)
+        m1 = np.asarray(w @ data).ravel() / n_obs
+        m2 = (np.asarray(w**2 @ data.power(2)).ravel()
+              - (1 - q) * np.asarray(w**2 @ data).ravel()) / n_obs
+        return [m1, m2 - m1 * m1]
+
+    cust = mtt.AnnData(ad.X.copy(), obs={k: ad.obs[k] for k in ad.obs.columns})
+    mtt.setup_memento(cust, q_column="capture_q", filter_mean_thresh=0.01,
+                      estimator_type=(hyper, None))
+    mtt.create_groups(cust, label_columns=["condition", "replicate"])
+    mtt.compute_1d_moments(cust, min_perc_group=0.5)
+    mtt.ht_1d_moments(cust, treatment=tx, **kw)
+    assert bootstrap.CUSTOM_PATHS["device"] == len(groups)
+    assert np.isfinite(mtt.get_1d_ht_result(cust)["de_coef"]).all()
     loaded = [m for m in sys.modules if sys.modules[m] is not None
               and m.split(".")[0] in ("jax", "jaxlib", "memento_tpu",
                                       "pandas")]

@@ -94,7 +94,7 @@ _CACHE = {}
 def _pair(inp, resampling, approx, model="hyper_relative", **over):
     """(JAX result, port result) on the same compressed inputs, cached for
     the module."""
-    key = (resampling, approx, model, tuple(sorted(over)))
+    key = (resampling, approx, model, tuple(sorted(over)), over.get("sampler"))
     if key not in _CACHE:
         common = _common(inp, resampling=resampling, approx=approx, **over)
         want = j_run_ht_1d(jax.random.key(0), compressed=inp["comps"],
@@ -173,9 +173,66 @@ def test_entry_points_raise_without_cuda(inputs):
     ported = from_jax_outputs(compressed=inputs["comps"])["compressed"]
     with pytest.raises(RuntimeError, match="CUDA"):
         t_ht.run_ht_1d(0, compressed=ported, **common)
-    with pytest.raises(NotImplementedError):
-        t_ht.run_ht_1d(0, compressed=ported, device="cpu",
-                       **dict(common, sampler="poisson"))
+
+
+@pytest.mark.parametrize("sampler", ["multinomial", "poisson", "gaussian"])
+def test_run_ht_1d_sampler_matches_jax(inputs, sampler):
+    """Each sampler against the JAX package's run with the same sampler:
+    observed coefficients rtol 1e-5, SEs median |log ratio| < 0.15,
+    p-values median |dp| < 0.05."""
+    want, got = _pair(inputs, "bootstrap", False, sampler=sampler)
+    for stat in ("mean", "var"):
+        np.testing.assert_allclose(got[f"{stat}_coef"], want[f"{stat}_coef"],
+                                   rtol=1e-5, atol=1e-6, equal_nan=True)
+        ok = np.isfinite(want[f"{stat}_se"]) & np.isfinite(got[f"{stat}_se"])
+        assert ok.mean() > 0.9
+        log_ratio = np.median(np.abs(np.log(got[f"{stat}_se"][ok]
+                                            / want[f"{stat}_se"][ok])))
+        assert log_ratio < 0.15, (stat, log_ratio)
+        pdiff = np.nanmedian(np.abs(got[f"{stat}_pval"]
+                                    - want[f"{stat}_pval"]))
+        assert pdiff < 0.05, (stat, pdiff)
+    assert (got["mean_pval"][:N_DE] < 0.05).mean() >= 0.8
+
+
+def _first_genes(inp, t):
+    """``ht_1d_tile``'s inputs for the first ``t`` genes of the ported
+    compressed groups, padded to one U."""
+    ported = from_jax_outputs(compressed=inp["comps"])["compressed"]
+    u = max(c.padded_u for c in ported)
+
+    def stack(field, fill=0.0):
+        out = np.full((len(ported), t, u), fill, np.float32)
+        for r, c in enumerate(ported):
+            x = getattr(c, field)[:t]
+            out[r, :, :x.shape[1]] = x
+        return out
+
+    inv_sf = stack("inv_sf", 1.0)
+    return (stack("values"), stack("counts"), inv_sf, inv_sf * inv_sf,
+            np.stack([c.n_unique[:t] for c in ported]),
+            inp["true_mean"][:, :t], inp["true_res_var"][:, :t],
+            inp["mv_coeffs"], inp["q"],
+            np.array([c.n_obs for c in ported], np.float32),
+            inp["covariate"], np.tile(inp["treatment"], (t, 1, 1)))
+
+
+@pytest.mark.parametrize("sampler", ["multinomial", "poisson", "gaussian"])
+def test_boot_chunk_not_dividing_b_gives_b_replicates(inputs, sampler):
+    """Chunks of 150 replicates (three, the last trimmed) give B replicates
+    with the tile's own seeds per (group, chunk): the same coefficients as
+    one chunk, SEs of the same size."""
+    args = _first_genes(inputs, 8)
+    kw = dict(num_boot=B, model=t_est.HYPER_RELATIVE, sampler=sampler,
+              approx=True, device="cpu")
+    res = t_ht.ht_1d_tile(3, *args, boot_chunk=150, **kw)
+    whole = t_ht.ht_1d_tile(3, *args, **kw)
+    assert res["mean_coef_full"].shape == (8, 1, B + 1)
+    assert torch.isfinite(res["mean_coef_full"]).all()
+    assert torch.isfinite(res["var_se"]).all()
+    torch.testing.assert_close(res["mean_coef"], whole["mean_coef"])
+    ratio = (res["mean_se"] / whole["mean_se"]).flatten()
+    assert 0.75 < float(ratio.median()) < 1.33
 
 
 def test_tile_compact_transport_equals_float_transport(rng):

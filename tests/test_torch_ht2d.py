@@ -113,7 +113,7 @@ _CACHE = {}
 def _pair(inp, resampling, approx, **over):
     """(JAX result, port result) on the same compressed inputs, cached for
     the module."""
-    key = (resampling, approx, tuple(sorted(over)))
+    key = (resampling, approx, tuple(sorted(over)), over.get("sampler"))
     if key not in _CACHE:
         common = _common(inp, resampling=resampling, approx=approx, **over)
         want = j_run_ht_2d(jax.random.key(0), compressed_pairs=inp["comps"],
@@ -296,12 +296,8 @@ def test_2d_entry_points_raise_without_cuda(inputs, rng):
 
 
 @pytest.mark.parametrize("option,match", [
-    (dict(sampler="multinomial"), "multinomial"),
-    (dict(sampler="poisson"), "poisson"),
-    (dict(sampler="gaussian"), "gaussian"),
     (dict(mesh=object()), "mesh"),
     (dict(distributed=True), "distributed"),
-    (dict(custom_est=(len, len)), "custom"),
 ])
 def test_run_ht_2d_refuses_what_is_not_ported(inputs, option, match):
     common = _common(inputs, model=t_est.HYPER_RELATIVE, device="cpu")
@@ -312,12 +308,37 @@ def test_run_ht_2d_refuses_what_is_not_ported(inputs, option, match):
                        **common)
 
 
-def test_2d_tile_refuses_custom_estimators(rng):
+@pytest.mark.parametrize("sampler", ["multinomial", "poisson", "gaussian"])
+def test_run_ht_2d_sampler_matches_jax(inputs, sampler):
+    """Each sampler against the JAX package's run with the same sampler:
+    observed coefficients rtol 1e-5, SEs median |log ratio| < 0.15,
+    p-values median |dp| < 0.05; the planted correlations show.  B = 200
+    keeps the JAX package's materialized samplers within the file's time."""
+    want, got = _pair(inputs, "bootstrap", False, sampler=sampler,
+                      num_boot=200)
+    np.testing.assert_allclose(got["corr_coef"], want["corr_coef"],
+                               rtol=1e-5, atol=1e-6, equal_nan=True)
+    ok = np.isfinite(want["corr_se"]) & np.isfinite(got["corr_se"])
+    assert ok.mean() > 0.9
+    log_ratio = np.median(np.abs(np.log(got["corr_se"][ok]
+                                        / want["corr_se"][ok])))
+    assert log_ratio < 0.15, log_ratio
+    pdiff = np.nanmedian(np.abs(got["corr_pval"] - want["corr_pval"]))
+    assert pdiff < 0.05, pdiff
+    assert (got["corr_pval"][:N_CORR, 0] < 0.05).mean() >= 0.75
+
+
+def test_2d_boot_chunk_not_dividing_b_gives_b_replicates(rng):
+    """Chunks of 150 replicates give B replicates, the same coefficients as
+    one chunk, and SEs of the same size."""
     lead, _, _, inv_sf, rest = _tile_args(rng)
-    with pytest.raises(NotImplementedError, match="custom"):
-        t_ht.ht_2d_tile(3, *lead, inv_sf, inv_sf * inv_sf, *rest, num_boot=8,
-                        model=t_est.HYPER_RELATIVE, device="cpu",
-                        custom_est=(len, len))
-    with pytest.raises(NotImplementedError, match="poisson"):
-        t_boot.bootstrap_2d(*(torch.ones(2, 4) for _ in range(5)), 4.0, 0.1,
-                            t_est.HYPER_RELATIVE, 8, 0, "poisson")
+    kw = dict(num_boot=B, model=t_est.HYPER_RELATIVE, sampler="multinomial",
+              approx=True, device="cpu")
+    res = t_ht.ht_2d_tile(3, *lead, inv_sf, inv_sf * inv_sf, *rest,
+                          boot_chunk=150, **kw)
+    whole = t_ht.ht_2d_tile(3, *lead, inv_sf, inv_sf * inv_sf, *rest, **kw)
+    assert res["corr_coef_full"].shape == (8, 1, B + 1)
+    assert torch.isfinite(res["corr_coef_full"]).all()
+    torch.testing.assert_close(res["corr_coef"], whole["corr_coef"])
+    ratio = (res["corr_se"] / whole["corr_se"]).flatten()
+    assert 0.75 < float(ratio.nanmedian()) < 1.33
