@@ -41,10 +41,26 @@ Phases, one line each:
       CPU: 2D with the Poisson and Gaussian samplers, with a custom tuple and
       with per-pair treatments, and a numpy-only 1D estimator (the host
       path);
+  (i) multi-GPU and multi-process on the state (c), (e) and (f) left: (i1)
+      the 1D and 2D tests at 4 tiles each (tile sizes 240 and 128) on
+      ``make_mesh()`` (the visible cards) and on ``cuda:0`` listed twice,
+      bit for bit equal to the run without a mesh, 4 launches each; (i2)
+      ``stream_mean_var`` over the whole matrix in both precisions against
+      the native float64 pass, and ``setup_memento`` /
+      ``compute_1d_moments`` with the mesh against (c)'s state; (i3)
+      ``get_corr_matrix`` with the mesh against the pair path; (i4) two
+      worker processes of this script (``--worker RANK PORT DIR``) sharing
+      the card over gloo, each rebuilding (c)'s dataset and running both
+      tests with ``distributed=True`` and without in the same process (bit
+      for bit equal, 2 launches a path per rank), rank 0's merged results
+      calibrated as (c)'s and (e)'s, its 1D result bit for bit (i1)'s run
+      without a mesh;
   (b) the kernel against its plain PyTorch version on each main path's own
       tile, B = 2000: W = 1 and W = 2 on the 1D tile, W = 5 on the 2D tile,
-      in distribution; then, with the same seed, element by element against
-      the plain version fed from the kernel's own Philox stream
+      and on the first tile of each path's tiling in (i) (W = 2 on 240
+      genes, W = 5 on 128 pairs), in distribution; then, with the same
+      seed, element by element against the plain version fed from the
+      kernel's own Philox stream
       (``fused_bootstrap_sums_philox``) on a subsample of rows, B = 256; two
       launches with one seed bit for bit, and B = 1000 against the first
       1000 replicates of B = 2000;
@@ -508,6 +524,21 @@ def draw_pairs(n_genes, n_pairs):
     return idx1, idx2
 
 
+def main_path_pairs(adata, genes, planted_genes):
+    """(e)'s pairs over the genes that passed the filter: ``(idx1, idx2,
+    planted)``; the first of them are the planted pairs (their genes all
+    pass: base mean >= PLANT_MIN_MEAN)."""
+    position = {name: i for i, name in enumerate(adata.var.index)}
+    idx1, idx2 = draw_pairs(adata.n_vars, N_PAIRS)
+    idx1[:N_PLANTED_PAIRS] = [position[g] for g in genes[planted_genes[:, 0]]]
+    idx2[:N_PLANTED_PAIRS] = [position[g] for g in genes[planted_genes[:, 1]]]
+    planted_sets = {frozenset(pair) for pair in
+                    zip(idx1[:N_PLANTED_PAIRS], idx2[:N_PLANTED_PAIRS])}
+    planted2 = np.array([frozenset(pair) in planted_sets
+                         for pair in zip(idx1, idx2)])
+    return idx1, idx2, planted2
+
+
 def timed_calls():
     """``(timed, secs)``: ``timed(name, fn, ...)`` calls ``fn`` between two
     device synchronisations and files its seconds under ``name``."""
@@ -568,8 +599,9 @@ def run_api_2d(mtt, adata, device, idx1, idx2, num_boot):
     return result, secs
 
 
-def main_path_tile(adata, model):
-    """The kernel inputs of the main path's (single) tile, rebuilt from the
+def main_path_tile(adata, model, tile=None):
+    """The kernel inputs of the main path's (single) tile, or with ``tile``
+    of the first tile of that size (phase (i)'s tiling), rebuilt from the
     pipeline state exactly as run_ht_1d / ht_1d_tile build them: counts
     ``[R*T, U]``, weights ``[R*T, U, 2]``, n_obs ``[R*T]``."""
     from memento_tpu_torch.inference.ht import _round_up, default_tile_size
@@ -578,11 +610,14 @@ def main_path_tile(adata, model):
     uns = adata.uns["memento"]
     groups = uns["groups"]
     g = adata.n_vars
-    tile = min(default_tile_size(len(groups), NUM_BOOT), _round_up(g, 64))
-    if tile < g:
-        raise AssertionError(f"main path ran {-(-g // tile)} tiles; expected 1")
+    if tile is None:
+        tile = min(default_tile_size(len(groups), NUM_BOOT), _round_up(g, 64))
+        if tile < g:
+            raise AssertionError(
+                f"main path ran {-(-g // tile)} tiles; expected 1")
     comps = [compress_group(uns["group_cells"][grp],
-                            uns["approx_size_factor"][grp]) for grp in groups]
+                            uns["approx_size_factor"][grp],
+                            cols=(0, min(tile, g))) for grp in groups]
     u = _round_up(max(c.padded_u for c in comps), 64)
 
     def pad(x, rows, cols):
@@ -605,12 +640,13 @@ def main_path_tile(adata, model):
             n_obs)
 
 
-def main_path_tile_2d(adata, model, idx1, idx2, device):
-    """The kernel inputs of the 2D main path's (single) tile, rebuilt from
-    the pipeline state as ht_2d_moments / run_ht_2d / ht_2d_tile build them
-    (unordered duplicates tested once, joint compression per group, one
-    padded U for the tile): counts ``[R*P, U]``, weights ``[R*P, U, 5]``,
-    n_obs ``[R*P]``, as tensors on ``device``."""
+def main_path_tile_2d(adata, model, idx1, idx2, device, tile=None):
+    """The kernel inputs of the 2D main path's (single) tile, or with
+    ``tile`` of the first tile of that size (phase (i)'s tiling), rebuilt
+    from the pipeline state as ht_2d_moments / run_ht_2d / ht_2d_tile build
+    them (unordered duplicates tested once, joint compression per group,
+    one padded U for the tile): counts ``[R*P, U]``, weights
+    ``[R*P, U, 5]``, n_obs ``[R*P]``, as tensors on ``device``."""
     import torch
 
     from memento_tpu_torch.inference.ht import (MAX_PAIR_TILE, _round_up,
@@ -626,14 +662,15 @@ def main_path_tile_2d(adata, model, idx1, idx2, device):
     idx1, idx2 = idx1[keep], idx2[keep]
     uns = adata.uns["memento"]
     groups = uns["groups"]
-    tile = min(default_tile_size(len(groups), NUM_BOOT), MAX_PAIR_TILE,
-               _round_up(len(idx1), 64))
-    if tile < len(idx1):
-        raise AssertionError(
-            f"2D main path ran {-(-len(idx1) // tile)} tiles; expected 1")
+    if tile is None:
+        tile = min(default_tile_size(len(groups), NUM_BOOT), MAX_PAIR_TILE,
+                   _round_up(len(idx1), 64))
+        if tile < len(idx1):
+            raise AssertionError(
+                f"2D main path ran {-(-len(idx1) // tile)} tiles; expected 1")
     comps = [compress_pairs(uns["group_cells"][grp],
-                            uns["approx_size_factor"][grp], idx1, idx2)
-             for grp in groups]
+                            uns["approx_size_factor"][grp], idx1[:tile],
+                            idx2[:tile]) for grp in groups]
     u = _round_up(max(c.padded_u for c in comps), 64)
 
     def stack(field, fill=0.0):
@@ -886,9 +923,272 @@ def native_against_plain(adata, idx1, idx2):
     return secs
 
 
+# Phase (i): tile sizes that give the main paths 4 tiles each (about 940
+# genes pass the filter; (e) tests 512 pairs)
+TILE_1D_I = 240
+TILE_2D_I = 128
+N_WORKERS = 2  # processes sharing the card in (i4)
+WORKER_TIMEOUT_S = 420
+GROUP_TIMEOUT_S = 180  # process group start-up and each collective
+
+
+def equal_tables(a, b, cols, label):
+    for col in cols:
+        require(np.array_equal(np.asarray(a[col]), np.asarray(b[col]),
+                               equal_nan=True),
+                f"{label}: {col} differs")
+
+
+def mesh_runs(mtt, adata, dev):
+    """(i1): the 1D and 2D tests at 4 tiles each without a mesh, on the
+    visible cards (``make_mesh()``) and on ``cuda:0`` listed twice; each
+    mesh run bit for bit equal to the run without one, 4 launches each.
+    Returns ``(numbers, launches by path, the 1D run without a mesh)``."""
+    from memento_tpu_torch.parallel.mesh import make_mesh
+
+    covariate, treatment = design(mtt, adata)
+    ht = dict(covariate=covariate, treatment=treatment, num_boot=NUM_BOOT,
+              resampling="bootstrap", approx=False, verbose=0)
+    meshes = {"visible": make_mesh(), "cuda0_twice": make_mesh(
+        ["cuda:0", "cuda:0"])}
+    paths = (("1d", mtt.ht_1d_moments, mtt.get_1d_ht_result, TILE_1D_I,
+              ("de_coef", "de_se", "de_pval", "dv_coef", "dv_se", "dv_pval")),
+             ("2d", mtt.ht_2d_moments, mtt.get_2d_ht_result, TILE_2D_I,
+              ("corr_coef", "corr_se", "corr_pval")))
+    out, launches, bases = {}, {}, {}
+    for path, test, result, tile, cols in paths:
+        def run(**kw):
+            test(adata, tile_size=tile, **ht, **kw)
+            return result(adata)
+
+        base, info = measured(run, device=dev)
+        require(info["cascade_launches"] == 4,
+                f"{path} at tile {tile}: {info}")
+        out[f"{path}_no_mesh"] = info
+        bases[path] = base
+        for name, mesh in meshes.items():
+            res, info = measured(run, mesh=mesh)
+            require(info["cascade_launches"] == 4,
+                    f"{path} on mesh {name}: {info}")
+            equal_tables(res, base, cols, f"{path} on mesh {name}")
+            info["devices"] = [str(d) for d in mesh]
+            out[f"{path}_mesh_{name}"] = info
+            if name == "visible":
+                launches[f"mesh_{path}"] = info["cascade_launches"]
+    return out, launches, bases["1d"]
+
+
+def streamed_moments(mtt, adata, X, obs, genes):
+    """(i2): ``stream_mean_var`` over the whole matrix on the visible cards,
+    both precisions, against the native host float64 pass; then
+    ``setup_memento`` / ``compute_1d_moments`` given the mesh (they keep the
+    native pass) against (c)'s state.  Returns the seconds and largest
+    relative differences."""
+    import torch
+
+    from memento_tpu_torch.ops import estimators as est
+    from memento_tpu_torch.parallel.mesh import make_mesh
+    from memento_tpu_torch.parallel.streaming import stream_mean_var
+
+    mesh = make_mesh()
+    sf = np.asarray(adata.obs["memento_size_factor"])
+    out = {}
+    (m_ref, v_ref), out["host_native_s"] = host_clock(
+        est.mean_var_sparse, X, sf, CAPTURE_Q)
+    for precision, tol_m, tol_v in (("high", dict(rtol=1e-10),
+                                     dict(rtol=1e-10)),
+                                    ("fast", dict(rtol=3e-4),
+                                     dict(rtol=3e-3, atol=1e-5))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, v = stream_mean_var(mesh, X, sf, CAPTURE_Q, est.HYPER_RELATIVE,
+                               precision=precision)
+        out[f"stream_{precision}_s"] = round(time.perf_counter() - t0, 3)
+        np.testing.assert_allclose(m, m_ref, err_msg=f"{precision} mean",
+                                   **tol_m)
+        np.testing.assert_allclose(v, v_ref, err_msg=f"{precision} var",
+                                   **tol_v)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            out[f"stream_{precision}_max_rel"] = float(np.nanmax(
+                np.abs(v - v_ref) / np.abs(v_ref)))
+
+    ad = mtt.AnnData(X, obs=obs, var=mtt.ColumnTable(index=genes))
+    timed, secs = timed_calls()
+    timed("setup_memento", mtt.setup_memento, ad, q_column="capture_q",
+          mesh=mesh)
+    timed("create_groups", mtt.create_groups, ad,
+          label_columns=["condition", "replicate"])
+    timed("compute_1d_moments", mtt.compute_1d_moments, ad, mesh=mesh)
+    out["api_mesh_s"] = secs
+    want, got = adata.uns["memento"], ad.uns["memento"]
+    for a, b in zip(got["all_1d_moments"], want["all_1d_moments"]):
+        np.testing.assert_allclose(a, b, rtol=1e-10)
+    np.testing.assert_allclose(ad.obs["memento_size_factor"], sf, rtol=1e-10)
+    require(got["gene_list"] == want["gene_list"], "mesh gene lists differ")
+    for g in want["groups"]:
+        for a, b in zip(got["1d_moments"][g], want["1d_moments"][g]):
+            np.testing.assert_allclose(a, b, rtol=1e-10, equal_nan=True)
+    return out
+
+
+def corr_on_mesh(mtt, adata, group, idx1, idx2, corr_mat):
+    """(i3): ``get_corr_matrix(mesh=make_mesh())`` on (f)'s group against
+    the host float64 pair path (limit 1e-3, as (f)) and (f)'s matrix."""
+    import torch
+
+    from memento_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mat = mtt.get_corr_matrix(adata, group, mesh=make_mesh())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    pair_corr = adata.uns["memento"]["2d_moments"][group]["corr"]
+    at_pairs = mat[idx1, idx2]
+    inside = np.isfinite(at_pairs) & (np.abs(pair_corr) < 1)
+    err = float(np.abs(at_pairs[inside] - pair_corr[inside]).max())
+    require(inside.sum() >= 0.9 * N_PAIRS and err <= 1e-3,
+            f"mesh correlation matrix vs pair path: {err}")
+    require(np.array_equal(np.isnan(mat), np.isnan(corr_mat)),
+            "mesh correlation matrix NaN pattern differs from (f)")
+    return {"s": round(secs, 3), "max_abs_vs_pairs": err,
+            "max_abs_vs_f": float(np.nanmax(np.abs(mat - corr_mat)))}
+
+
+def distributed_worker(rank: int, port: str, outdir: str, seed: int) -> int:
+    """One process of (i4): joins the gloo group, rebuilds (c)'s dataset from
+    the seed, runs the public API, then each test with
+    ``distributed=True`` and without it in this process on the same state
+    (bit for bit equal, its own 2 tiles a path).  Writes its numbers to
+    ``outdir/rank{rank}.json``; rank 0 also its result arrays."""
+    import torch
+
+    import memento_tpu_torch as mtt
+    from memento_tpu_torch.ops import cuda_kernels
+    from memento_tpu_torch.parallel import distributed as dist
+    from memento_tpu_torch.utils import profiling
+
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"worker {rank}: no CUDA device")
+    dist.initialize(f"localhost:{port}", N_WORKERS, rank,
+                    timeout=GROUP_TIMEOUT_S)
+    dev = dist.local_device()
+    t0 = time.perf_counter()
+    X, obs, planted_genes = simulate(
+        np.random.default_rng(seed), N_CELLS, N_GENES,
+        np.random.default_rng([seed, 2]))
+    genes = np.array([f"G{i}" for i in range(N_GENES)])
+    adata = mtt.AnnData(X, obs=obs, var=mtt.ColumnTable(index=genes))
+    sim_s = time.perf_counter() - t0
+    timed, prep = timed_calls()
+    timed("setup_memento", mtt.setup_memento, adata, q_column="capture_q")
+    timed("create_groups", mtt.create_groups, adata,
+          label_columns=["condition", "replicate"])
+    timed("compute_1d_moments", mtt.compute_1d_moments, adata)
+    idx1, idx2, _ = main_path_pairs(adata, genes, planted_genes)
+    names = np.asarray(adata.var.index)
+    mtt.compute_2d_moments(adata, list(zip(names[idx1], names[idx2])))
+    covariate, treatment = design(mtt, adata)
+    ht = dict(covariate=covariate, treatment=treatment, num_boot=NUM_BOOT,
+              resampling="bootstrap", approx=False, verbose=0)
+    numbers = {"rank": rank, "device": str(dev), "simulate_s": round(sim_s, 3),
+               "prepare_s": prep}
+    arrays = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for path, test, result, tile, label, cols in (
+            ("1d", mtt.ht_1d_moments, mtt.get_1d_ht_result, TILE_1D_I,
+             "ht1d", ("de_coef", "de_se", "de_pval", "dv_coef", "dv_se",
+                      "dv_pval")),
+            ("2d", mtt.ht_2d_moments, mtt.get_2d_ht_result, TILE_2D_I,
+             "ht2d", ("corr_coef", "corr_se", "corr_pval"))):
+        cuda_kernels.reset_launches()
+        profiling.reset_timings()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        test(adata, distributed=True, tile_size=tile, **ht)
+        torch.cuda.synchronize(dev)
+        dist_s = time.perf_counter() - t0
+        launches = cuda_kernels.LAUNCHES["cascade_bootstrap"]
+        merge_s = profiling.timings()[f"{label}.merge"]["total_s"]
+        merged = result(adata)
+        t0 = time.perf_counter()
+        test(adata, distributed=False, tile_size=tile, device=dev, **ht)
+        torch.cuda.synchronize(dev)
+        one_s = time.perf_counter() - t0
+        single = result(adata)
+        equal_tables(merged, single, cols, f"rank {rank} {path}")
+        require(launches == 2, f"rank {rank} {path}: {launches} launches in "
+                "the distributed call, expected its own 2 tiles")
+        numbers[path] = {"distributed_s": round(dist_s, 3),
+                         "single_s": round(one_s, 3),
+                         "merge_allreduce_s": round(merge_s, 4),
+                         "launches": launches}
+        for col in cols:
+            arrays[f"{path}_{col}"] = np.asarray(merged[col], np.float64)
+        if path == "1d":
+            arrays["1d_gene"] = np.asarray(merged["gene"]).astype(str)
+    numbers["peak_gib"] = round(
+        torch.cuda.max_memory_allocated(dev) / 2**30, 3)
+    if rank == 0:
+        np.savez(os.path.join(outdir, "rank0.npz"), **arrays)
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(numbers, f)
+    return 0
+
+
+def distributed_runs(seed: int, result_1d_tile, planted2):
+    """(i4): ``N_WORKERS`` worker processes of this script sharing the card
+    over gloo on localhost; every worker must exit 0 in time.  Checks rank
+    0's merged results (calibration) and gathers each rank's numbers."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = str(sk.getsockname()[1])
+    env = dict(os.environ, OMP_NUM_THREADS=str(
+        max(1, (os.cpu_count() or 2) // N_WORKERS)))
+    with tempfile.TemporaryDirectory() as outdir:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--worker", str(rank), port, outdir],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for rank in range(N_WORKERS)]
+        outs = []
+        try:
+            for proc in procs:
+                out, err = proc.communicate(timeout=WORKER_TIMEOUT_S)
+                outs.append((proc.returncode, out, err))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        for rank, (rc, out, err) in enumerate(outs):
+            require(rc == 0, f"worker {rank} exited {rc}\n{out[-2000:]}\n"
+                    f"{err[-4000:]}")
+        ranks = []
+        for rank in range(N_WORKERS):
+            with open(os.path.join(outdir, f"rank{rank}.json")) as f:
+                ranks.append(json.load(f))
+        with np.load(os.path.join(outdir, "rank0.npz")) as z:
+            arrays = {k: z[k] for k in z.files}
+    planted = np.array([int(g[1:]) < N_PLANTED for g in arrays["1d_gene"]])
+    cal = {"1d": calibration(arrays["1d_de_pval"], planted, "distributed 1D"),
+           "2d": calibration(arrays["2d_corr_pval"], planted2,
+                             "distributed 2D")}
+    same_as_parent = all(
+        np.array_equal(arrays[f"1d_{col}"], np.asarray(result_1d_tile[col]),
+                       equal_nan=True) for col in ("de_coef", "de_se",
+                                                   "de_pval", "dv_coef",
+                                                   "dv_se", "dv_pval"))
+    return ranks, cal, same_as_parent
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--worker", nargs=3, metavar=("RANK", "PORT", "DIR"),
+                        help="run as one process of phase (i4)")
     args = parser.parse_args()
 
     import torch
@@ -898,6 +1198,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.worker:
+        rank, port, outdir = args.worker
+        return distributed_worker(int(rank), port, outdir, args.seed)
     import memento_tpu_torch as mtt
     from memento_tpu_torch import native
     from memento_tpu_torch.native import _build as native_build
@@ -1000,16 +1303,7 @@ def main() -> int:
         raise AssertionError("small-slice SE / p-value disagreement")
 
     # ---- (e) the 2D main path ----------------------------------------------
-    # pairs over the genes that passed the filter; the first of them are
-    # the planted pairs (their genes all pass: base mean >= PLANT_MIN_MEAN)
-    position = {name: i for i, name in enumerate(adata.var.index)}
-    idx1, idx2 = draw_pairs(adata.n_vars, N_PAIRS)
-    idx1[:N_PLANTED_PAIRS] = [position[g] for g in genes[planted_genes[:, 0]]]
-    idx2[:N_PLANTED_PAIRS] = [position[g] for g in genes[planted_genes[:, 1]]]
-    planted_sets = {frozenset(pair) for pair in
-                    zip(idx1[:N_PLANTED_PAIRS], idx2[:N_PLANTED_PAIRS])}
-    planted2 = np.array([frozenset(pair) in planted_sets
-                         for pair in zip(idx1, idx2)])
+    idx1, idx2, planted2 = main_path_pairs(adata, genes, planted_genes)
 
     cuda_kernels.reset_launches()
     native.reset_calls()
@@ -1105,32 +1399,71 @@ def main() -> int:
         f"ratio: {json.dumps(small_ratios)} | phase (h) "
         f"{time.perf_counter() - t0:.1f} s | {card}")
 
+    # ---- (i) multi-GPU and multi-process ------------------------------------
+    t_i = time.perf_counter()
+    mesh_info, launches_i, base_1d_tile = mesh_runs(mtt, adata, dev)
+    log(f"(i1) mesh: 1D at tile {TILE_1D_I}, 2D at tile {TILE_2D_I}, 4 tiles "
+        f"each, without a mesh, on make_mesh() and on cuda:0 twice: bit for "
+        f"bit equal, 4 launches each | {json.dumps(mesh_info)} | {card}")
+    stream_info = streamed_moments(mtt, adata, X, obs, genes)
+    log(f"(i2) streamed moments on make_mesh() ({N_CELLS} x {N_GENES}): "
+        f"'high' within rtol 1e-10 and 'fast' within the JAX tolerances of "
+        f"the native float64 pass; setup_memento / compute_1d_moments with "
+        f"the mesh equal (c)'s at rtol 1e-10 | {json.dumps(stream_info)} | "
+        f"{card}")
+    corr_info = corr_on_mesh(mtt, adata, group, idx1, idx2, corr_mat)
+    log(f"(i3) get_corr_matrix(mesh=make_mesh()) on group {group}: "
+        f"{json.dumps(corr_info)} (limit 1e-3 against the pair path) | (f) "
+        f"took {corr_s:.3f} s | {card}")
+    torch.cuda.empty_cache()
+    ranks, cal, same_as_parent = distributed_runs(args.seed, base_1d_tile,
+                                                  planted2)
+    require(same_as_parent, "rank 0's merged 1D result differs from (i1)'s "
+            "one-process run at the same tile size")
+    for path in ("1d", "2d"):
+        launches_i[f"dist_{path}"] = sum(r[path]["launches"] for r in ranks)
+    log(f"(i4) distributed: {N_WORKERS} processes sharing the card over "
+        f"gloo, distributed=True bit for bit equal to the one-process call in "
+        f"each, 2 launches a path per rank | per rank {json.dumps(ranks)} | "
+        f"(power, null median p, null FP@0.05) {json.dumps(cal)} | rank 0's "
+        f"1D result bit for bit equal to (i1)'s run without a mesh | "
+        f"phase (i) {time.perf_counter() - t_i:.1f} s | {card}")
+
     # ---- (b) kernel against its plain version on each main path's tile ----
-    counts_np, weights_np, n_obs_np = main_path_tile(adata, HYPER_RELATIVE)
+    # each main path's tile, and the first tile of each path's tiling in (i)
+    def tile_1d(tile=None):
+        return tuple(torch.as_tensor(a, device=dev)
+                     for a in main_path_tile(adata, HYPER_RELATIVE, tile))
+
     tiles = {
-        2: (torch.as_tensor(counts_np, device=dev),
-            torch.as_tensor(weights_np, device=dev),
-            torch.as_tensor(n_obs_np, device=dev)),
-        5: main_path_tile_2d(adata, HYPER_RELATIVE, idx1, idx2, dev),
+        "1d": tile_1d(),
+        "2d": main_path_tile_2d(adata, HYPER_RELATIVE, idx1, idx2, dev),
+        "1d_tile240": tile_1d(TILE_1D_I),
+        "2d_tile128": main_path_tile_2d(adata, HYPER_RELATIVE, idx1, idx2, dev,
+                                        TILE_2D_I),
     }
-    if int((counts_np > 0).sum(1).max()) <= 256:
+    if int((tiles["1d"][0] > 0).sum(1).max()) <= 256:
         raise AssertionError("no 1D row with U > 256")
     max_err, shapes, same_seed = {}, {}, {}
-    for tile_w, check_w in ((2, (1, 2)), (5, (5,))):
-        counts, weights, _ = tiles[tile_w]
+    for key, tile_w, check_w, what in (
+            ("1d", 2, (1, 2), "1D main path tile"),
+            ("2d", 5, (5,), "2D main path tile"),
+            ("1d_tile240", 2, (2,), f"first 1D tile of {TILE_1D_I} in (i)"),
+            ("2d_tile128", 5, (5,), f"first 2D tile of {TILE_2D_I} in (i)")):
+        counts, weights, _ = tiles[key]
         t_dim, u_dim = counts.shape
         occupied = (counts > 0).sum(1)
         small_bins = float(((counts > 0) & (counts < 8)).sum()
                            / occupied.sum())
-        shapes[tile_w] = {"rows": t_dim, "bins": u_dim, "W": tile_w,
-                          "B": NUM_BOOT}
+        shapes[key] = {"rows": t_dim, "bins": u_dim, "W": tile_w,
+                       "B": NUM_BOOT}
         # the plain version holds a [rows, bins, 32] float32 table; take
         # every k-th row if that would pass 8 GiB
         step = -(-(t_dim * u_dim * 32 * 4) // (8 << 30))
         counts_b = counts[::step].contiguous()
         n_rows = counts_b.sum(1)
         cons_tol = conservation_limit(float(n_rows.max()), int(occupied.max()))
-        max_err[tile_w], dist = 0.0, None
+        max_err[key], dist = 0.0, None
         # same-seed subsample: at most ~128 rows, the main path's own
         # weights; it must hold rows that end inside a group of four bins
         sub = slice(0, None, max(1, t_dim // 128))
@@ -1138,9 +1471,9 @@ def main() -> int:
         n_rows_s = counts_s.sum(1)
         ragged = int(((counts_s > 0).sum(1) % 4 != 0).sum())
         if ragged == 0:
-            raise AssertionError("same-seed subsample has no row whose end "
-                                 "is not a multiple of 4")
-        same_seed[tile_w] = {}
+            raise AssertionError(f"{what}: same-seed subsample has no row "
+                                 "whose end is not a multiple of 4")
+        same_seed[key] = {}
         for w_dim in check_w:
             w_b = weights[::step, :, :w_dim].clone()
             w_b[..., 0] = 1.0  # weight 1: the resample's total
@@ -1152,8 +1485,8 @@ def main() -> int:
             torch.cuda.synchronize()
             err, wm, ws = check_distribution(
                 k.cpu().numpy(), pl.cpu().numpy(), n_rows.cpu().numpy(),
-                cons_tol, f"W={w_dim}")
-            max_err[tile_w] = max(max_err[tile_w], err)
+                cons_tol, f"{what}, W={w_dim}")
+            max_err[key] = max(max_err[key], err)
             dist = (wm, ws)
             # one seed, one result: launched again, and asked for half
             again = cuda_kernels.fused_bootstrap_sums_cuda(
@@ -1161,36 +1494,35 @@ def main() -> int:
             half = cuda_kernels.fused_bootstrap_sums_cuda(
                 counts_b, w_b, n_rows, 1000, args.seed + 11)
             if not torch.equal(k, again):
-                raise AssertionError(f"W={w_dim}: two launches with one seed "
-                                     "differ")
+                raise AssertionError(f"{what}, W={w_dim}: two launches with "
+                                     "one seed differ")
             if not torch.equal(half, k[..., :1000]):
-                raise AssertionError(f"W={w_dim}: B=1000 is not the first "
-                                     "1000 replicates of B=2000")
+                raise AssertionError(f"{what}, W={w_dim}: B=1000 is not the "
+                                     "first 1000 replicates of B=2000")
             del k, pl, again, half
-            same_seed[tile_w][w_dim] = same_seed_check(
+            same_seed[key][w_dim] = same_seed_check(
                 cuda_kernels, sampling, counts_s,
                 weights[sub, :, :w_dim].contiguous(), n_rows_s,
-                args.seed + 13, f"W={w_dim}")
-        log(f"(b) cascade_bootstrap vs plain on the "
-            f"{'1D' if tile_w == 2 else '2D'} main path tile [{t_dim} rows x "
+                args.seed + 13, f"{what}, W={w_dim}")
+        log(f"(b) cascade_bootstrap vs plain on the {what} [{t_dim} rows x "
             f"{u_dim} bins, max occupied {int(occupied.max())}, mean occupied "
             f"{float(occupied.float().mean()):.0f}, "
             f"{small_bins:.3f} of occupied bins below 8; row step {step}], "
             f"W in {check_w}, B=2000: conservation max "
-            f"|kernel - plain| {max_err[tile_w]:.4g} (limit "
+            f"|kernel - plain| {max_err[key]:.4g} (limit "
             f"{cons_tol:.3g}); W={check_w[-1]} mean dev "
             f"{dist[0]:.3f} sd, sd ratio dev {dist[1]:.3f} (limits 0.15) | "
             f"relaunch and B=1000-of-2000 bit-identical | same seed vs plain "
             f"on the kernel's Philox stream [{counts_s.shape[0]} rows, "
             f"{ragged} ending inside a group, B=256] (median rel. diff, share "
             f"within {SAME_SEED_WITHIN}, max) by W: "
-            f"{json.dumps(same_seed[tile_w])} (limits {SAME_SEED_MEDIAN}, "
+            f"{json.dumps(same_seed[key])} (limits {SAME_SEED_MEDIAN}, "
             f"{SAME_SEED_SHARE})")
 
     # ---- (d) times at each main path's tile shape --------------------------
     timings, wrapper_parts = {}, {}
-    for tile_w in (2, 5):
-        counts, weights, n_obs = tiles[tile_w]
+    for key, tile_w in (("1d", 2), ("2d", 5)):
+        counts, weights, n_obs = tiles[key]
         counts_host = counts.cpu().numpy()
         for num_boot in (NUM_BOOT, 10_000):
             ms = time_ms(lambda: cuda_kernels.fused_bootstrap_sums_cuda(
@@ -1234,37 +1566,44 @@ def main() -> int:
                 f"{plain_txt} | bound {bound_ms:.4f} ms ({bound_by}; by the "
                 f"first design's count {first_ms:.4f} ms) | {card}")
 
-    def numbers(tile_w, launches):
+    def numbers(key, tile_w, launches):
         ms, plain_ms, bound_ms, bound_by = timings[tile_w, NUM_BOOT]
         ms10, plain10, bound10, _ = timings[tile_w, 10_000]
         return {
             "launches": launches,
-            "max_abs_err": max_err[tile_w],
+            "max_abs_err": max(err for k, err in max_err.items()
+                               if shapes[k]["W"] == tile_w),
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,
-            "shape": shapes[tile_w],
+            "shape": shapes[key],
             **wrapper_parts[tile_w, NUM_BOOT],
-            "same_seed": same_seed[tile_w],
+            "same_seed": same_seed[key],
             "B10000": {"ms": ms10, "plain_ms": plain10, "bound_ms": bound10,
                        **wrapper_parts[tile_w, 10_000]},
         }
 
     # one kernel, two uses: the top-level numbers are those of the 1D path's
     # tile (W = 2) with the launches of both main paths; "W5" holds the same
-    # keys for the 2D path's tile
+    # keys for the 2D path's tile; max_abs_err covers phase (i)'s tiles of
+    # the same W too, whose checks "phase_i_tiles" holds
     kernel = {
         "name": "cascade_bootstrap",
         "route": "cuda",
         "source": "memento_tpu_torch/csrc/cascade_bootstrap.cu",
         "replaces": "memento_tpu/ops/pallas_kernels.py:53",
-        **numbers(2, launches_1d["cascade_bootstrap"]
+        **numbers("1d", 2, launches_1d["cascade_bootstrap"]
                   + launches_2d["cascade_bootstrap"]),
         "launches_by_path": {"1d": launches_1d["cascade_bootstrap"],
-                             "2d": launches_2d["cascade_bootstrap"]},
-        "W5": numbers(5, launches_2d["cascade_bootstrap"]),
+                             "2d": launches_2d["cascade_bootstrap"],
+                             **launches_i},
+        "W5": numbers("2d", 5, launches_2d["cascade_bootstrap"]),
+        "phase_i_tiles": {key: {"shape": shapes[key],
+                                "max_abs_err": max_err[key],
+                                "same_seed": same_seed[key]}
+                          for key in ("1d_tile240", "2d_tile128")},
     }
     print(json.dumps({"kernels": [kernel]}))
     print(card)

@@ -12,7 +12,9 @@ Public API (the JAX package's names):
   setup_memento, create_groups, get_groups, compute_1d_moments,
   ht_1d_moments, get_1d_moments, get_1d_ht_result (per gene);
   compute_2d_moments, ht_2d_moments, get_2d_moments, get_2d_ht_result
-  (per gene pair); get_corr_matrix; prepare_to_save
+  (per gene pair); get_corr_matrix; prepare_to_save.  Multi-device and
+  multi-process runs: ``parallel`` (a mesh of devices, ``torch.distributed``);
+  the analyses' helpers: ``util``, ``simulate``, ``io.h5ad``.
 """
 
 from .api import (
@@ -31,6 +33,11 @@ from .api import (
     setup_memento,
 )
 from .containers import AnnData, ColumnTable
+
+# the reference's submodule paths: analyses call ``memento.util.*`` and
+# ``memento.simulate.*``
+from . import util  # noqa: E402,F401
+from .models import simulate  # noqa: E402,F401
 
 __version__ = "0.2.0"
 

@@ -15,17 +15,21 @@ the JAX package takes it, else numpy/scipy; the tests and the correlation
 matrix run on the device given to ``ht_1d_moments`` / ``ht_2d_moments`` /
 ``get_corr_matrix`` (default ``cuda``).
 
-The options of the JAX package's tests are all here but its multi-device
-ones (``mesh``, ``distributed``, which raise): every sampler, custom
+Every option of the JAX package's tests is here: every sampler, custom
 ``(fn_1d, fn_cov)`` estimator tuples (the reference's calling convention),
-per-gene and per-pair treatments (``treatment_for_gene``, eQTL mode) and
-block-wise checkpoint/resume (``checkpoint_dir``).  ``prepare_to_save``
-makes ``uns['memento']`` serializable.
+per-gene and per-pair treatments (``treatment_for_gene``, eQTL mode),
+block-wise checkpoint/resume (``checkpoint_dir``), a ``mesh`` of devices
+(a tuple of ``torch.device``s, ``parallel/mesh.py``: tiles round-robin over
+it, the correlation matrix split over it; the moments stay the native host
+pass) and ``distributed=True`` in a ``torch.distributed`` process group
+(``parallel/distributed.py``).  ``prepare_to_save`` makes
+``uns['memento']`` serializable.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 import pickle
 import warnings
 
@@ -40,6 +44,7 @@ from .ops import estimators as est
 from .ops.corr import corr_matrix_device, cov_sparse_pairs
 from .ops.mv_regression import fit_mv_regressor
 from .ops.size_factor import bin_size_factor, estimate_size_factor
+from .parallel.mesh import as_mesh
 from .utils.blocks import run_blocks
 
 __all__ = [
@@ -131,8 +136,18 @@ def setup_memento(
     shrinkage=0.5,
     num_bins=30,
     estimator_type="hyper_relative",
+    mesh=None,
 ):
-    """Size factors and the overall mean-variance regressor."""
+    """Size factors and the overall mean-variance regressor.
+
+    ``mesh`` (a tuple of devices) is taken for the JAX package's signature
+    and checked, but the moments stay the native host float64 pass with or
+    without one: streaming the cells through a mesh
+    (``parallel.streaming.stream_mean_var``, the same sums) took 2.1-2.4 s
+    where the native pass took 0.026 s, on 200,000 x 1,024 cells with one
+    H100 (``chip_smoke.py`` phase (i2))."""
+    if mesh is not None:
+        as_mesh(mesh)
     if not inplace:
         adata = adata.copy()
 
@@ -255,8 +270,11 @@ def get_groups(adata) -> ColumnTable:
 
 
 def compute_1d_moments(adata, inplace=True, min_perc_group=0.7,
-                       filter_genes=True, gene_list=None):
-    """Mean, variance and residual variance per group."""
+                       filter_genes=True, gene_list=None, mesh=None):
+    """Mean, variance and residual variance per group.  ``mesh`` is checked
+    and otherwise changes nothing, as in ``setup_memento``."""
+    if mesh is not None:
+        as_mesh(mesh)
     if "memento" not in adata.uns:
         raise ValueError("run setup_memento first")
     if not inplace:
@@ -334,19 +352,21 @@ def compute_1d_moments(adata, inplace=True, min_perc_group=0.7,
 def get_corr_matrix(adata, group, mesh=None, device=None):
     """All-by-all ``[G, G]`` correlation matrix of one group, as blocked
     float32 matrix products on ``device`` (default ``cuda``) finished in
-    host float64."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "get_corr_matrix over a device mesh is not ported yet")
+    host float64; with ``mesh`` (a tuple of devices) the Gram matrix's
+    columns are split over its devices
+    (``parallel.sharded.corr_matrix_sharded``)."""
     uns = adata.uns["memento"]
     model = est.get_noise_model(uns["estimator_type"])
     if model is None:
         raise NotImplementedError(
             "get_corr_matrix requires a registry estimator_type")
-    return corr_matrix_device(
-        uns["group_cells"][group], uns["size_factor"][group],
-        uns["group_q"][group], uns["1d_moments"][group][1], model,
-        device=device)
+    args = (uns["group_cells"][group], uns["size_factor"][group],
+            uns["group_q"][group], uns["1d_moments"][group][1], model)
+    if mesh is not None:
+        from .parallel.sharded import corr_matrix_sharded
+
+        return corr_matrix_sharded(mesh, *args)
+    return corr_matrix_device(*args, device=device)
 
 
 def _corr_from_cov_np(cov, var_1, var_2):
@@ -430,16 +450,44 @@ def _per_item_treatment(treatment, treatment_for_item, keys, n_groups):
     return tens, nt
 
 
+def _distributed_checkpoint(checkpoint_dir, distributed):
+    """``(directory, resume_filter)`` of a checkpointed run.
+
+    With ``distributed=True`` in a process group of more than one process,
+    each process writes its blocks into its own ``proc{rank}/`` (no two
+    processes write one file; every process holds each block's merged
+    result, so each copy is whole), and a block is resumed only if every
+    process has it: an all-reduced intersection of the have-vectors.  A
+    block that any process lacks is then recomputed by all of them, so all
+    stay in the same collectives (the row merge of each block)."""
+    from .parallel.distributed import (allreduce_hostsums, process_count,
+                                       process_index)
+
+    nproc = process_count() if distributed else 1
+    if nproc <= 1:
+        return checkpoint_dir, None
+
+    def resume_filter(have):
+        total = allreduce_hostsums(np.asarray(have, np.float64))[0]
+        return np.rint(total) >= nproc
+
+    return os.path.join(checkpoint_dir, f"proc{process_index()}"), \
+        resume_filter
+
+
 def _run_items(n_items, run_block, checkpoint_dir, checkpoint_block, name,
-               verbose, meta):
+               verbose, meta, distributed):
     """All items in one block, or in checkpointed blocks of
     ``checkpoint_block``; block ``b``'s seed folds its start (the caller's
     ``run_block``), so a resumed run equals an uninterrupted one."""
     if checkpoint_dir is None:
         return run_block(0, n_items)
+    ckpt_dir, resume_filter = _distributed_checkpoint(checkpoint_dir,
+                                                      distributed)
     return run_blocks(n_items, checkpoint_block, run_block,
-                      checkpoint_dir=checkpoint_dir, name=name,
-                      verbose=verbose, meta=meta())
+                      checkpoint_dir=ckpt_dir, name=name,
+                      verbose=verbose, meta=meta(),
+                      resume_filter=resume_filter)
 
 
 def ht_1d_moments(
@@ -474,8 +522,13 @@ def ht_1d_moments(
     columns tested for it (eQTL mode).  With ``checkpoint_dir``, genes run in
     blocks of ``checkpoint_block`` saved as ``.npz``; a later call resumes at
     the first missing block.  The tests run on ``device`` (default ``cuda``;
-    ``'cpu'`` runs the plain tensor path on the CPU).  ``mesh`` and
-    ``distributed`` (multi-GPU) are not ported yet and raise.
+    ``'cpu'`` runs the plain tensor path on the CPU), or with ``mesh`` (a
+    tuple of devices) round-robin over its devices.  With
+    ``distributed=True`` in a ``torch.distributed`` process group each
+    process runs its share of the gene tiles and every process gets the
+    whole result (the default device is then the process's own card,
+    ``cuda:{LOCAL_RANK % device_count}``); checkpoint blocks then go to
+    ``checkpoint_dir/proc{rank}/``.
     """
     if not inplace:
         adata = adata.copy()
@@ -531,7 +584,8 @@ def ht_1d_moments(
     res = _run_items(
         g, run_gene_block, checkpoint_dir, checkpoint_block, "1d_ht",
         verbose > 0, lambda: _ckpt_meta(uns, ",".join(map(str, gene_names)),
-                                        seed, num_boot, resampling, approx))
+                                        seed, num_boot, resampling, approx),
+        distributed)
 
     # [G, Kt] results -> flat per-test arrays, gene-major, each gene's
     # tested columns only
@@ -581,8 +635,8 @@ def ht_2d_moments(
     only the first is tested.  ``treatment_for_gene`` maps the unordered
     gene-name pair (a ``frozenset``) to its treatment columns, of which the
     first is reported.  Checkpoint blocks run over the deduplicated pairs.
-    ``covariate``, ``treatment``, ``checkpoint_*`` and ``device`` as in
-    ``ht_1d_moments``.
+    ``covariate``, ``treatment``, ``checkpoint_*``, ``mesh``,
+    ``distributed`` and ``device`` as in ``ht_1d_moments``.
     """
     if not inplace:
         adata = adata.copy()
@@ -669,7 +723,7 @@ def ht_2d_moments(
             len(uniq_pairs), run_pair_block, checkpoint_dir, checkpoint_block,
             "2d_ht", verbose > 0, lambda: _ckpt_meta(
                 uns, ",".join(f"{a}:{b}" for a, b, _ in uniq_pairs), seed,
-                num_boot, resampling, approx))
+                num_boot, resampling, approx), distributed)
         # broadcast each unique pair's result to all its duplicates
         for u, (i1, i2, _) in enumerate(uniq_pairs):
             rows = idx_mapping[frozenset((i1, i2))]

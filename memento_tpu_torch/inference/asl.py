@@ -110,4 +110,33 @@ def gev_refine(stat: float, null: np.ndarray, fallback: float) -> float:
             return fallback
 
 
-__all__ = ["asl_counting", "gev_refine", "GEV_COUNT_THRESHOLD"]
+def refine_flagged(coef: np.ndarray, pvals: np.ndarray, needs: np.ndarray,
+                   resampling: str) -> np.ndarray:
+    """GEV refinement of every flagged test, batched (``inference.gev``).
+
+    Args:
+      coef: ``[..., B+1]`` host array of coefficients (column 0 observed).
+      pvals / needs: outputs of ``asl_counting``, as host arrays.
+      resampling: ``'bootstrap'`` (the null is centred on the observed
+        statistic) or ``'permutation'``.
+
+    Returns:
+      refined p-values, the shape of ``pvals``.
+    """
+    from .gev import gev_refine_batch
+
+    out = np.array(pvals, copy=True)
+    needs = np.asarray(needs, bool)
+    if not needs.any():
+        return out
+    rows = np.asarray(coef[needs], np.float64)
+    stats = rows[:, 0]
+    nulls = rows[:, 1:]
+    if resampling == "bootstrap":
+        nulls = nulls - stats[:, None]
+    out[needs] = gev_refine_batch(stats, nulls, out[needs])
+    return out
+
+
+__all__ = ["asl_counting", "gev_refine", "refine_flagged",
+           "GEV_COUNT_THRESHOLD"]

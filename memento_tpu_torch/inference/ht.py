@@ -16,11 +16,22 @@ flight are bounded, and the flagged p-value tails are refined (GEV) on a
 worker thread.  Group dropping and NaN semantics are masks and zero weights,
 as in the JAX package.
 
+Two ways to spread the tiles, which combine: ``mesh`` (a tuple of devices,
+``parallel/mesh.py``) sends whole tiles round-robin to its devices, each
+launching the CUDA kernel on its own tiles; ``distributed=True`` in a
+``torch.distributed`` group gives each process its round-robin share of the
+tiles and merges the rows (``parallel/distributed.py``).  A tile's seed is
+``fold_seed(seed, tile start)`` wherever it runs, so both equal the
+one-device run bit for bit at the same ``tile_size``.  (Under a mesh the JAX
+package took its XLA cascade, because a ``pallas_call`` needs an explicit
+``shard_map``; a CUDA kernel needs nothing of the kind.)
+
 Device math is float32, as on the JAX device path; host stages are float64.
 """
 
 from __future__ import annotations
 
+import contextlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional, Sequence
 
@@ -539,13 +550,51 @@ def _resolve_sampler(sampler: str, device: torch.device) -> str:
     return sampler
 
 
-def _refuse_unported(mesh, distributed: bool) -> None:
-    """Multi-GPU runs are a later slice of the port."""
-    for name, given in (("mesh", mesh is not None),
-                        ("distributed", bool(distributed))):
-        if given:
-            raise NotImplementedError(
-                f"{name} (multi-GPU) runs are not ported yet")
+def _check_distributed(distributed: bool) -> int:
+    """The number of processes sharing the tiles: the process group's size
+    under ``distributed=True``, else 1 (the one-process path)."""
+    if not distributed:
+        return 1
+    from ..parallel.distributed import process_count
+
+    return process_count()
+
+
+def _tile_devices(mesh, device, nproc: int):
+    """The devices the tiles go to, round-robin: the mesh's, or the one
+    ``device`` (under a process group, ``None`` means this process's card,
+    ``parallel.distributed.local_device``)."""
+    if mesh is not None:
+        from ..parallel.mesh import as_mesh
+
+        return as_mesh(mesh)
+    if device is None and nproc > 1:
+        from ..parallel.distributed import local_device
+
+        device = local_device()
+    return (resolve_device(device),)
+
+
+def _names(devices) -> str:
+    return ", ".join(str(d) for d in devices)
+
+
+def _merge_distributed(out: dict, starts, tile_size: int, n: int) -> dict:
+    """All-reduce the disjoint per-process result rows into the global
+    result (every process returns the same full arrays)."""
+    from ..parallel.distributed import merge_disjoint_rows
+
+    owned = np.zeros(n, bool)
+    for s in starts:
+        owned[s:min(s + tile_size, n)] = True
+    return merge_disjoint_rows(out, owned)
+
+
+def _on(dev: torch.device):
+    """Make ``dev`` the current CUDA device (the kernel launches on the
+    current device's stream); nothing for the CPU."""
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()
 
 
 def _sf_transport(comps, csl, u: int, t: int):
@@ -579,17 +628,21 @@ def _treatment_tile(treatment: np.ndarray, start: int, stop: int, t: int):
 
 def _run_tiles(label: str, unit: str, stats: Sequence[str], n_items: int,
                tile_size: int, kt: int, pack: Callable, launch: Callable, *,
-               dev, resampling: str, approx: bool, max_pending: int,
-               verbose: bool, note: str):
+               devices, nproc: int, resampling: str, approx: bool,
+               max_pending: int, verbose: bool, note: str):
     """The tile loop of both tests.
 
     ``pack(start, stop)`` builds one tile's host inputs (a tuple of numpy
     arrays and a dict of static options) on the prefetch thread, so tile
     t+1 is compressed while the device runs tile t.  ``launch(start, args,
-    static)`` runs the tile's device program on the transferred arrays and
-    returns its result dict.  Results are harvested at most ``max_pending``
-    tiles behind the launches; flagged p-value tails go to the GEV worker.
-    Phases are timed as ``<label>.*``.
+    static, dev)`` runs the tile's device program on the arrays transferred
+    to ``dev`` and returns its result dict.  The tiles go round-robin to
+    ``devices``; with ``nproc`` > 1 this process runs only its share
+    (``process_tile_starts``) and the rows merge across the processes at the
+    end.  Results are harvested at most ``max_pending`` tiles behind the
+    launches; flagged p-value tails go to the GEV worker.  Phases are timed
+    as ``<label>.*`` (they wait for the device only when the tiles have one
+    device, so that several devices run at once).
 
     Returns ``{<stat>_coef, <stat>_se, <stat>_pval}`` ``[n_items, Kt]``
     float64 arrays for each name in ``stats``.
@@ -597,7 +650,13 @@ def _run_tiles(label: str, unit: str, stats: Sequence[str], n_items: int,
     out = {f"{stat}_{k}": np.full((n_items, kt), np.nan)
            for stat in stats for k in ("coef", "se", "pval")}
     starts = list(range(0, n_items, tile_size))
-    progress = profiling.ProgressReporter(n_items, unit=unit, label=label,
+    if nproc > 1:
+        from ..parallel.distributed import process_tile_starts
+
+        starts = process_tile_starts(starts)
+    sync_dev = devices[0] if len(set(devices)) == 1 else None
+    n_local = sum(min(s + tile_size, n_items) - s for s in starts)
+    progress = profiling.ProgressReporter(n_local, unit=unit, label=label,
                                           enabled=bool(verbose))
     progress.note(note)
     gev_worker = _DeferredGEV(f"{label}.gev.refine")
@@ -641,12 +700,14 @@ def _run_tiles(label: str, unit: str, stats: Sequence[str], n_items: int,
             host_args, static = fut.result()
             fut = (prefetch.submit(_pack, starts[i + 1])
                    if i + 1 < len(starts) else None)
-            with profiling.phase(f"{label}.transfer", device=dev):
-                tile_args = tuple(torch.as_tensor(np.ascontiguousarray(a),
-                                                  device=dev)
-                                  for a in host_args)
-            with profiling.phase(f"{label}.dispatch", device=dev):
-                res = launch(start, tile_args, static)
+            dev = devices[i % len(devices)]
+            with _on(dev):
+                with profiling.phase(f"{label}.transfer", device=sync_dev):
+                    tile_args = tuple(
+                        torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                        for a in host_args)
+                with profiling.phase(f"{label}.dispatch", device=sync_dev):
+                    res = launch(start, tile_args, static, dev)
             pending.append((start, min(start + tile_size, n_items), res))
             while len(pending) > max_pending:
                 harvest(*pending.pop(0))
@@ -657,6 +718,9 @@ def _run_tiles(label: str, unit: str, stats: Sequence[str], n_items: int,
         with profiling.phase(f"{label}.gev.join"):
             gev_worker.finish()
     progress.close()
+    if nproc > 1:
+        with profiling.phase(f"{label}.merge"):
+            out = _merge_distributed(out, starts, tile_size, n_items)
     return out
 
 
@@ -695,18 +759,23 @@ def run_ht_1d(
         previous tile.
 
     Each tile's seed is ``fold_seed(seed, tile start)``, so results do not
-    depend on the tiling order.  ``boot_chunk`` bounds the replicates drawn
-    at once by the per-group samplers, ``custom_1d`` is a user estimator
-    (see ``ht_1d_tile``).
+    depend on the tiling order, the device or the process that runs the
+    tile.  ``boot_chunk`` bounds the replicates drawn at once by the
+    per-group samplers, ``custom_1d`` is a user estimator (see
+    ``ht_1d_tile``).  ``mesh`` (a tuple of devices) sends whole tiles
+    round-robin to its devices in place of ``device``; ``distributed=True``
+    in a ``torch.distributed`` group runs this process's share of the tiles
+    and merges the rows, every process returning the whole result (see the
+    module docstring).
 
     Returns a dict of ``[G, Kt]`` float64 arrays: mean_coef/se/pval,
     var_coef/se/pval.
     """
-    _refuse_unported(mesh, distributed)
     from ..ops.compress import compress_group
 
-    dev = resolve_device(device)
-    sampler = _resolve_sampler(sampler, dev)
+    nproc = _check_distributed(distributed)
+    devices = _tile_devices(mesh, device, nproc)
+    samplers = {dev: _resolve_sampler(sampler, dev) for dev in devices}
     if compressed is not None:
         r = len(compressed)
         u_fixed = max(c.padded_u for c in compressed)
@@ -766,21 +835,21 @@ def run_ht_1d(
         )
         return host_args, {"sf_binned": binned}
 
-    def launch(start, tile_args, static):
+    def launch(start, tile_args, static, dev):
         return ht_1d_tile(
             fold_seed(seed, start), *tile_args,
-            num_boot=num_boot, model=model, sampler=sampler,
-            one_sample=one_sample, resampling=resampling,
-            approx=approx, resample_rep=resample_rep,
+            num_boot=num_boot, model=model,
+            sampler=samplers[dev], one_sample=one_sample,
+            resampling=resampling, approx=approx, resample_rep=resample_rep,
             boot_chunk=min(boot_chunk, num_boot), custom_1d=custom_1d,
             treat_padded=per_gene_treatment, device=dev, **static)
 
     return _run_tiles(
         "ht1d", "genes", ("mean", "var"), g, tile_size, kt, pack, launch,
-        dev=dev, resampling=resampling, approx=approx,
+        devices=devices, nproc=nproc, resampling=resampling, approx=approx,
         max_pending=max_pending, verbose=verbose,
-        note=f"{g} genes in tiles of {tile_size} on {dev} "
-             f"(sampler {sampler})")
+        note=f"{g} genes in tiles of {tile_size} on {_names(devices)} "
+             f"(sampler {_names(samplers.values())}, {nproc} processes)")
 
 
 def run_ht_2d(
@@ -819,16 +888,17 @@ def run_ht_2d(
         (``compress_pairs``) on the prefetch thread.
 
     Each tile's seed is ``fold_seed(seed, tile start)``; ``ht_2d_tile`` folds
-    the 2D path constant into it.  ``boot_chunk`` and the user estimators
-    ``custom_est = (fn_1d, fn_cov)`` as in ``run_ht_1d``.
+    the 2D path constant into it.  ``boot_chunk``, the user estimators
+    ``custom_est = (fn_1d, fn_cov)``, ``mesh`` and ``distributed`` as in
+    ``run_ht_1d``.
 
     Returns a dict of ``[P, Kt]`` float64 arrays: corr_coef/se/pval.
     """
-    _refuse_unported(mesh, distributed)
     from ..ops.compress import compress_pairs
 
-    dev = resolve_device(device)
-    sampler = _resolve_sampler(sampler, dev)
+    nproc = _check_distributed(distributed)
+    devices = _tile_devices(mesh, device, nproc)
+    samplers = {dev: _resolve_sampler(sampler, dev) for dev in devices}
     if compressed_pairs is not None:
         r = len(compressed_pairs)
         u_fixed = max(c.padded_u for c in compressed_pairs)
@@ -884,21 +954,21 @@ def run_ht_2d(
         )
         return host_args, {"sf_binned": binned}
 
-    def launch(start, tile_args, static):
+    def launch(start, tile_args, static, dev):
         return ht_2d_tile(
             fold_seed(seed, start), *tile_args,
-            num_boot=num_boot, model=model, sampler=sampler,
-            one_sample=one_sample, resampling=resampling,
-            approx=approx, resample_rep=resample_rep,
+            num_boot=num_boot, model=model,
+            sampler=samplers[dev], one_sample=one_sample,
+            resampling=resampling, approx=approx, resample_rep=resample_rep,
             boot_chunk=min(boot_chunk, num_boot), custom_est=custom_est,
             treat_padded=per_pair_treatment, device=dev, **static)
 
     return _run_tiles(
         "ht2d", "pairs", ("corr",), p, tile_size, kt, pack, launch,
-        dev=dev, resampling=resampling, approx=approx,
+        devices=devices, nproc=nproc, resampling=resampling, approx=approx,
         max_pending=max_pending, verbose=verbose,
-        note=f"{p} pairs in tiles of {tile_size} on {dev} "
-             f"(sampler {sampler})")
+        note=f"{p} pairs in tiles of {tile_size} on {_names(devices)} "
+             f"(sampler {_names(samplers.values())}, {nproc} processes)")
 
 
 __all__ = ["fill_invalid", "ht_1d_tile", "ht_2d_tile", "run_ht_1d",

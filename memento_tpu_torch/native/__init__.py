@@ -16,7 +16,10 @@ the JAX package does the same:
 - an indexed axis longer than 2^31 - 1 (the sums read int32 indices);
 - for the packers' zero-copy paths (``compress_group_range_native`` and the
   v2 pair path), data that is not integral and non-negative: the packers
-  then round the data first, as the numpy packer does;
+  then round the data first, as the numpy packer does.  That verdict is
+  cached on the matrix, and the C++ checks every nonzero it reads against
+  it: after an in-place edit of ``X.data`` the packer refuses the call, and
+  the wrapper checks the matrix afresh and packs again;
 - beyond the JAX package, data the C++ would mishandle: negative counts
   (out-of-bounds histogram writes) and values past ``MAX_HIST`` histogram
   slots per gene or 2^31 - 1 in a pair (an int32 cast).
@@ -49,16 +52,24 @@ _I64, _I32, _P = ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p
 _SIGNATURES = {
     "compress_group_compact": [_I64, _I64, _I32] + [_P] * 11,
     "compress_group_compact_range":
-        [_I64, _I64, _I32, _P, _P, _I32, _P, _I32] + [_P] * 9,
-    "compress_pairs_compact": [_I64, _I64, _I64, _I32] + [_P] * 14,
+        [_I64, _I64, _I32, _P, _P, _I32, _P, _I32] + [_P] * 3 + [_I64]
+        + [_P] * 6,
     "compress_pairs_compact_v2":
-        [_I64, _I64, _I64, _I32, _P, _P, _I32, _P, _I32] + [_P] * 11,
+        [_I64, _I64, _I64, _I32, _P, _P, _I32, _P, _I32] + [_P] * 2 + [_I64]
+        + [_P] * 9,
     "suffstats_csr": [_I64, _I64] + [_P] * 7,
     "suffstats_csc": [_I64] + [_P] * 7,
     "row_sums_csr": [_I64] + [_P] * 6,
     "col_sums_csr": [_I64, _I64] + [_P] * 5,
     "pair_prods_csc": [_I64] + [_P] * 7,
 }
+# entries that return a status: 0, or 1 for a nonzero outside the verdict
+# (a count in [0, vmax]; integral for the range packer) that the caller
+# passed
+_STATUS = ("compress_group_compact_range", "compress_pairs_compact_v2")
+# the pair packer's codes for the data dtypes it reads as stored
+_PAIR_DATA = {np.dtype(np.float64): 0, np.dtype(np.float32): 1,
+              np.dtype(np.int64): 2, np.dtype(np.int32): 3}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -68,16 +79,17 @@ def reset_calls() -> None:
             CALLS[name] = 0
 
 
-def _call(entry: str, counter: str, *args) -> None:
-    """Call ``entry`` of the library (built on first use) and count it."""
+def _call(entry: str, counter: str, *args):
+    """Call ``entry`` of the library (built on first use) and count it;
+    returns the entry's status (``None`` for an entry without one)."""
     lib = _build.load()
     fn = getattr(lib, entry)
     if fn.argtypes is None:
         fn.argtypes = _SIGNATURES[entry]
-        fn.restype = None
+        fn.restype = ctypes.c_int32 if entry in _STATUS else None
     with _COUNT_LOCK:
         CALLS[counter] += 1
-    fn(*args)
+    return fn(*args)
 
 
 def _ptr(a, dtype):
@@ -113,19 +125,21 @@ def _counts_stats(d):
     return True, vmax
 
 
-def _compress_range_prep(X, approx_sf):
+def _compress_range_prep(X, approx_sf, fresh: bool = False):
     """Per-(matrix, size-factor) prep of the zero-copy packers, cached on the
     matrix: int64 indptr, int32 bin ids, float64 bin values, global bin
     occupancy and the largest value, or ``None`` when the data is not
     integral and non-negative (the C++ truncates ``x + 0.5``, exact only for
     such data).  Computed once, so each tile's call touches only the tile's
-    nonzeros.  The entry holds the size-factor array itself and is checked
-    with ``is``: a key by ``id()`` could match a new array allocated where a
-    freed one was."""
+    nonzeros; ``fresh`` recomputes it (the C++ refused a nonzero that the
+    cached verdict no longer covers).  The entry holds the size-factor array
+    itself and is checked with ``is``: a key by ``id()`` could match a new
+    array allocated where a freed one was."""
     from ..ops.size_factor import factorize_approx_sf
 
     prep = getattr(X, "_memento_torch_range_prep", None)
-    if prep is not None and prep[0] is approx_sf and prep[1] == X.nnz:
+    if not fresh and prep is not None and prep[0] is approx_sf \
+            and prep[1] == X.nnz:
         return prep[2]
     bin_values, bin_ids = factorize_approx_sf(approx_sf)
     ok, vmax = _counts_stats(X.data)
@@ -255,35 +269,40 @@ def compress_group_range_native(X, approx_sf, col_start, col_stop,
     if not sparse.issparse(X) or X.format != "csc":
         return None
     buffers = _native_buffers(X)
-    prep = _compress_range_prep(X, approx_sf) if buffers else None
-    if prep is None:
-        return None
-    indptr, bins, binvals, bin_total, vmax = prep
-    nbins = len(binvals)
-    if (vmax + 1) * nbins > MAX_HIST:
+    if buffers is None:
         return None
     indices, data = buffers
     col_start, col_stop, _ = slice(col_start, col_stop).indices(X.shape[1])
     ncols = max(0, col_stop - col_start)
-
-    cap_off = np.zeros(ncols + 1, dtype=np.int64)
-    np.cumsum(nbins + np.diff(indptr[col_start:col_start + ncols + 1]),
-              out=cap_off[1:])
-    bufs, n_unique = _compact_buffers(int(cap_off[-1]), ncols,
-                                      nbins + 1 <= 255, ("values",))
-    if ncols:
-        _call("compress_group_compact_range", "compress_group_range",
-              col_start, col_start + ncols, nbins, _ptr(indptr, np.int64),
-              _ptr(indices, indices.dtype), int(indices.dtype == np.int64),
-              _ptr(data, data.dtype), int(data.dtype == np.float32),
-              _ptr(bins, np.int32), _ptr(bin_total, np.int64),
-              _ptr(binvals, np.float64), _ptr(cap_off, np.int64),
-              _ptr(bufs["values"], np.float32),
-              _ptr(bufs["counts"], np.float32),
-              _ptr(bufs["inv_sf"], np.float32),
-              _ptr(bufs["sf_bin"], np.uint8), _ptr(n_unique, np.int32))
-    return _group_result(bufs, cap_off, n_unique, binvals, X.shape[0],
-                         pad_multiple, min_u)
+    # the second pass re-checks a matrix edited in place since its prep
+    for fresh in (False, True):
+        prep = _compress_range_prep(X, approx_sf, fresh)
+        if prep is None:
+            return None
+        indptr, bins, binvals, bin_total, vmax = prep
+        nbins = len(binvals)
+        if (vmax + 1) * nbins > MAX_HIST:
+            return None
+        cap_off = np.zeros(ncols + 1, dtype=np.int64)
+        np.cumsum(nbins + np.diff(indptr[col_start:col_start + ncols + 1]),
+                  out=cap_off[1:])
+        bufs, n_unique = _compact_buffers(int(cap_off[-1]), ncols,
+                                          nbins + 1 <= 255, ("values",))
+        if not ncols or _call(
+                "compress_group_compact_range", "compress_group_range",
+                col_start, col_start + ncols, nbins, _ptr(indptr, np.int64),
+                _ptr(indices, indices.dtype), int(indices.dtype == np.int64),
+                _ptr(data, data.dtype), int(data.dtype == np.float32),
+                _ptr(bins, np.int32), _ptr(bin_total, np.int64),
+                _ptr(binvals, np.float64), vmax, _ptr(cap_off, np.int64),
+                _ptr(bufs["values"], np.float32),
+                _ptr(bufs["counts"], np.float32),
+                _ptr(bufs["inv_sf"], np.float32),
+                _ptr(bufs["sf_bin"], np.uint8),
+                _ptr(n_unique, np.int32)) == 0:
+            return _group_result(bufs, cap_off, n_unique, binvals,
+                                 X.shape[0], pad_multiple, min_u)
+    raise RuntimeError("the matrix's data changed while it was being packed")
 
 
 def _pair_indices(idx1, idx2, n_genes):
@@ -306,72 +325,108 @@ def _sorted_csc(X):
     return X
 
 
+def _rounded_stats(d):
+    """``(ok, largest value)`` of count data rounded half to even, as the
+    pair packer reads it: ``ok`` when every value is finite and rounds to
+    a count >= 0.  Chunked, so no nnz-sized temporary is made."""
+    if d.dtype.kind in "iu":
+        return (not d.size or int(d.min()) >= 0), \
+            (int(d.max()) if d.size else 0)
+    vmax, step = 0, 1 << 24
+    buf = np.empty(min(d.size, step), dtype=d.dtype)
+    for s in range(0, d.size, step):
+        r = np.rint(d[s:s + step], out=buf[:min(step, d.size - s)])
+        lo, hi = float(r.min()), float(r.max())
+        if not (lo >= 0 and np.isfinite(hi)):
+            return False, 0
+        vmax = max(vmax, int(hi))
+    return True, vmax
+
+
+def _pairs_prep(X, approx_sf, fresh: bool = False):
+    """The pair packer's per-(matrix, size-factor) prep: int64 indptr,
+    int32 bin ids, float64 bin values and the largest count, or ``None``
+    for negative or non-finite counts.  Integral float data shares the
+    range packers' prep; other data gets the same verdict for its values
+    rounded half to even (the C++ rounds as it reads), cached on the matrix
+    in the same way.  ``fresh`` recomputes both."""
+    from ..ops.size_factor import factorize_approx_sf
+
+    if _native_buffers(X) is not None:
+        prep = _compress_range_prep(X, approx_sf, fresh)
+        if prep is not None:
+            indptr, bins, binvals, _, vmax = prep
+            return indptr, bins, binvals, vmax
+    cached = getattr(X, "_memento_torch_pairs_prep", None)
+    if not fresh and cached is not None and cached[0] is approx_sf \
+            and cached[1] == X.nnz:
+        return cached[2]
+    ok, vmax = _rounded_stats(X.data)
+    out = None
+    if ok:
+        bin_values, bin_ids = factorize_approx_sf(approx_sf)
+        out = (np.ascontiguousarray(X.indptr, dtype=np.int64),
+               np.ascontiguousarray(bin_ids, dtype=np.int32),
+               np.ascontiguousarray(bin_values, dtype=np.float64), vmax)
+    try:
+        X._memento_torch_pairs_prep = (approx_sf, X.nnz, out)
+    except AttributeError:  # matrix subclasses without __dict__
+        pass
+    return out
+
+
 def compress_pairs_native(X, approx_sf, idx1, idx2, pad_multiple=8,
                           min_u=8):
     """The C++ joint pair packer: one merge-plus-histogram pass per pair
     (OpenMP over pairs) writes compact runs at worst-case offsets
     (nbins + nnz(a) + nnz(b) slots per pair), then a ~U-sized numpy scatter
-    fills the padded ``[P, U]`` tiles.  Integral non-negative data is read
-    as scipy stores it (``compress_pairs_compact_v2``); other data is
-    rounded into int64 buffers first (``compress_pairs_compact``, cached on
-    the matrix).  ``None`` for negative counts or values past 2^31 - 1."""
+    fills the padded ``[P, U]`` tiles.  The data is read as scipy stores it
+    (``compress_pairs_compact_v2``), float values rounded half to even as
+    they are read, so no tile copies the matrix.  ``None`` for negative
+    counts or values past 2^31 - 1."""
     from ..ops.compress import CompressedPairGroup
-    from ..ops.size_factor import factorize_approx_sf
 
     X = _sorted_csc(X)
     n_cells, n_genes = X.shape
     i1, i2 = _pair_indices(idx1, idx2, n_genes)
     n_pairs = len(i1)
-    buffers = _native_buffers(X)
-    prep = _compress_range_prep(X, approx_sf) if buffers else None
-    if prep is not None:
-        indptr, bins, binvals, _, vmax = prep
-        indices, data = buffers
-    else:
-        bin_values, bin_ids = factorize_approx_sf(approx_sf)
-        bins = np.ascontiguousarray(bin_ids, dtype=np.int32)
-        binvals = np.ascontiguousarray(bin_values, dtype=np.float64)
-        cached = getattr(X, "_memento_torch_pairs_prep", None)
-        if cached is None or cached[0] != X.nnz:
-            data = np.round(X.data).astype(np.int64)
-            ok = not data.size or int(data.min()) >= 0
-            cached = (X.nnz, np.ascontiguousarray(X.indptr, dtype=np.int64),
-                      np.ascontiguousarray(X.indices, dtype=np.int64), data,
-                      int(data.max()) if ok and data.size else 0, ok)
-            try:
-                X._memento_torch_pairs_prep = cached
-            except AttributeError:  # matrix subclasses without __dict__
-                pass
-        _, indptr, indices, data, vmax, ok = cached
-        if not ok:
+    indices = np.ascontiguousarray(X.indices)
+    data = np.ascontiguousarray(X.data)
+    if data.dtype not in _PAIR_DATA:  # a dtype the C++ does not read
+        data = data.astype(np.float64)
+    # the second pass re-checks a matrix edited in place since its prep
+    for fresh in (False, True):
+        prep = _pairs_prep(X, approx_sf, fresh)
+        if prep is None:
             return None
-    if vmax > MAX_INT32:
-        return None
-    nbins = len(binvals)
+        indptr, bins, binvals, vmax = prep
+        if vmax > MAX_INT32:
+            return None
+        nbins = len(binvals)
 
-    nnz_col = np.diff(indptr)
-    cap_off = np.zeros(n_pairs + 1, dtype=np.int64)
-    np.cumsum(nbins + nnz_col[i1] + nnz_col[i2], out=cap_off[1:])
-    with_bins = nbins + 1 <= 255
-    bufs, n_unique = _compact_buffers(int(cap_off[-1]), n_pairs, with_bins,
-                                      ("values_1", "values_2"))
-    outs = (_ptr(i1, np.int64), _ptr(i2, np.int64), _ptr(cap_off, np.int64),
-            _ptr(bufs["values_1"], np.float32),
-            _ptr(bufs["values_2"], np.float32),
-            _ptr(bufs["counts"], np.float32),
-            _ptr(bufs["inv_sf"], np.float32), _ptr(bufs["sf_bin"], np.uint8),
-            _ptr(n_unique, np.int32))
-    if n_pairs and prep is not None:
-        _call("compress_pairs_compact_v2", "compress_pairs",
-              n_cells, n_genes, n_pairs, nbins, _ptr(indptr, np.int64),
-              _ptr(indices, indices.dtype), int(indices.dtype == np.int64),
-              _ptr(data, data.dtype), int(data.dtype == np.float32),
-              _ptr(bins, np.int32), _ptr(binvals, np.float64), *outs)
-    elif n_pairs:
-        _call("compress_pairs_compact", "compress_pairs",
-              n_cells, n_genes, n_pairs, nbins, _ptr(indptr, np.int64),
-              _ptr(indices, np.int64), _ptr(data, np.int64),
-              _ptr(bins, np.int32), _ptr(binvals, np.float64), *outs)
+        nnz_col = np.diff(indptr)
+        cap_off = np.zeros(n_pairs + 1, dtype=np.int64)
+        np.cumsum(nbins + nnz_col[i1] + nnz_col[i2], out=cap_off[1:])
+        with_bins = nbins + 1 <= 255
+        bufs, n_unique = _compact_buffers(int(cap_off[-1]), n_pairs,
+                                          with_bins, ("values_1", "values_2"))
+        if not n_pairs or _call(
+                "compress_pairs_compact_v2", "compress_pairs",
+                n_cells, n_genes, n_pairs, nbins, _ptr(indptr, np.int64),
+                _ptr(indices, indices.dtype), int(indices.dtype == np.int64),
+                _ptr(data, data.dtype), _PAIR_DATA[data.dtype],
+                _ptr(bins, np.int32), _ptr(binvals, np.float64), vmax,
+                _ptr(i1, np.int64), _ptr(i2, np.int64),
+                _ptr(cap_off, np.int64), _ptr(bufs["values_1"], np.float32),
+                _ptr(bufs["values_2"], np.float32),
+                _ptr(bufs["counts"], np.float32),
+                _ptr(bufs["inv_sf"], np.float32),
+                _ptr(bufs["sf_bin"], np.uint8),
+                _ptr(n_unique, np.int32)) == 0:
+            break
+    else:
+        raise RuntimeError(
+            "the matrix's data changed while it was being packed")
     t = _pad_runs({f: (bufs[f], fill) for f, fill in (
         ("values_1", 0.0), ("values_2", 0.0), ("counts", 0.0),
         ("inv_sf", 1.0), ("sf_bin", 0))}, cap_off, n_unique, pad_multiple,

@@ -20,6 +20,7 @@
 // integers, so a lazily-reset histogram beats sorting — O(nnz_g + U_g).
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <vector>
 
@@ -233,17 +234,33 @@ void compress_group_compact(int64_t n_cells, int64_t n_genes, int32_t nbins,
 // or dtype conversion of the group's matrix (slicing the CSC matrix and
 // converting indices/data to int64 per tile would cost more than the packing
 // itself at atlas scale).
+//
+// The caller checked the whole matrix once (integral, non-negative, largest
+// value vmax_cap) and caches that verdict; the data may have been edited in
+// place since.  So every nonzero is checked again as it is read: a value
+// that is not integral, is negative or exceeds vmax_cap makes the call
+// return 1 (its gene is left empty) and the caller re-checks the matrix.
 // ---------------------------------------------------------------------------
 
 namespace {
 
+// A count the caller's cached verdict covers: integral, in [0, vmax_cap]
+// (false for NaN and infinities).
+template <typename DataT>
+inline bool valid_count(DataT x, int64_t vmax_cap) {
+  const double d = static_cast<double>(x);
+  return d >= 0.0 && d <= static_cast<double>(vmax_cap) && d == std::floor(d);
+}
+
 template <typename IdxT, typename DataT>
-void compact_range_impl(int64_t col_start, int64_t col_stop, int32_t nbins,
-                        const int64_t* indptr, const IdxT* indices,
-                        const DataT* data, const int32_t* bins,
-                        const int64_t* bin_total, const float* inv_bin,
-                        const int64_t* cap_off, float* values, float* counts,
-                        float* inv_sf, uint8_t* sf_bin, int32_t* n_unique) {
+int32_t compact_range_impl(int64_t col_start, int64_t col_stop, int32_t nbins,
+                           const int64_t* indptr, const IdxT* indices,
+                           const DataT* data, const int32_t* bins,
+                           const int64_t* bin_total, const float* inv_bin,
+                           int64_t vmax_cap, const int64_t* cap_off,
+                           float* values, float* counts, float* inv_sf,
+                           uint8_t* sf_bin, int32_t* n_unique) {
+  int32_t refused = 0;
 #pragma omp parallel
   {
     CodeHist h;
@@ -254,9 +271,20 @@ void compact_range_impl(int64_t col_start, int64_t col_stop, int32_t nbins,
       const int64_t lo = indptr[g], hi = indptr[g + 1];
       std::fill(nz_bin.begin(), nz_bin.end(), 0);
       int64_t vmax = 0;
+      bool ok = true;
       for (int64_t k = lo; k < hi; ++k) {
+        if (!valid_count(data[k], vmax_cap)) {
+          ok = false;
+          break;
+        }
         const int64_t v = static_cast<int64_t>(data[k] + DataT(0.5));
         if (v > vmax) vmax = v;
+      }
+      if (!ok) {
+#pragma omp atomic write
+        refused = 1;
+        n_unique[gi] = 0;
+        continue;
       }
       h.ensure(static_cast<size_t>((vmax + 1)) * nbins);
       for (int64_t k = lo; k < hi; ++k) {
@@ -293,6 +321,7 @@ void compact_range_impl(int64_t col_start, int64_t col_stop, int32_t nbins,
       n_unique[gi] = static_cast<int32_t>(slot);
     }
   }
+  return refused;
 }
 
 }  // namespace
@@ -301,44 +330,30 @@ extern "C" {
 
 // idx64: 1 = indices are int64, 0 = int32.  data_f32: 1 = data is float32,
 // 0 = float64.  bin_total ([nbins] int64) is the caller-precomputed global
-// bin occupancy so repeated tile calls skip the O(n_cells) count.
-void compress_group_compact_range(
+// bin occupancy so repeated tile calls skip the O(n_cells) count.  Returns 0,
+// or 1 when a nonzero is not an integral count in [0, vmax_cap].
+int32_t compress_group_compact_range(
     int64_t col_start, int64_t col_stop, int32_t nbins, const int64_t* indptr,
     const void* indices, int32_t idx64, const void* data, int32_t data_f32,
     const int32_t* bins, const int64_t* bin_total, const double* bin_values,
-    const int64_t* cap_off, float* values, float* counts, float* inv_sf,
-    uint8_t* sf_bin, int32_t* n_unique) {
+    int64_t vmax_cap, const int64_t* cap_off, float* values, float* counts,
+    float* inv_sf, uint8_t* sf_bin, int32_t* n_unique) {
   std::vector<float> inv_bin(nbins);
   for (int32_t b = 0; b < nbins; ++b)
     inv_bin[b] = static_cast<float>(1.0 / bin_values[b]);
 
-  if (idx64) {
-    if (data_f32)
-      compact_range_impl(col_start, col_stop, nbins, indptr,
-                         static_cast<const int64_t*>(indices),
-                         static_cast<const float*>(data), bins, bin_total,
-                         inv_bin.data(), cap_off, values, counts, inv_sf,
-                         sf_bin, n_unique);
-    else
-      compact_range_impl(col_start, col_stop, nbins, indptr,
-                         static_cast<const int64_t*>(indices),
-                         static_cast<const double*>(data), bins, bin_total,
-                         inv_bin.data(), cap_off, values, counts, inv_sf,
-                         sf_bin, n_unique);
-  } else {
-    if (data_f32)
-      compact_range_impl(col_start, col_stop, nbins, indptr,
-                         static_cast<const int32_t*>(indices),
-                         static_cast<const float*>(data), bins, bin_total,
-                         inv_bin.data(), cap_off, values, counts, inv_sf,
-                         sf_bin, n_unique);
-    else
-      compact_range_impl(col_start, col_stop, nbins, indptr,
-                         static_cast<const int32_t*>(indices),
-                         static_cast<const double*>(data), bins, bin_total,
-                         inv_bin.data(), cap_off, values, counts, inv_sf,
-                         sf_bin, n_unique);
-  }
+#define MEMENTO_RANGE(IdxT, DataT)                                          \
+  compact_range_impl(col_start, col_stop, nbins, indptr,                    \
+                     static_cast<const IdxT*>(indices),                     \
+                     static_cast<const DataT*>(data), bins, bin_total,      \
+                     inv_bin.data(), vmax_cap, cap_off, values, counts,     \
+                     inv_sf, sf_bin, n_unique)
+  if (idx64)
+    return data_f32 ? MEMENTO_RANGE(int64_t, float)
+                    : MEMENTO_RANGE(int64_t, double);
+  return data_f32 ? MEMENTO_RANGE(int32_t, float)
+                  : MEMENTO_RANGE(int32_t, double);
+#undef MEMENTO_RANGE
 }
 
 }  // extern "C"

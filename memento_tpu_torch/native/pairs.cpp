@@ -17,11 +17,17 @@
 // scatters them into padded tiles (a ~U-sized gather, negligible).
 //
 // The kernel is templated over scipy's NATIVE index/data dtypes (int32/int64
-// indices, float32/float64 data) via compress_pairs_compact_v2, which reads
-// the buffers as stored: no per-matrix conversion to int64 indices and
-// rounded int64 data (seconds and gigabytes at 20k-gene atlas scale).
-// compress_pairs_compact takes that converted form, for data that must be
-// rounded first.
+// indices; float32/float64/int32/int64 data) and reads the buffers as
+// stored: no per-matrix conversion to int64 indices and rounded int64 data
+// (seconds and gigabytes at 20k-gene atlas scale).  A float value is rounded
+// as it is read, half to even as numpy's round does, so data that is not
+// integral needs no rounded copy either.
+//
+// The caller's verdict on the matrix (rounded values non-negative, largest
+// rounded value vmax_cap) may be cached from before an in-place edit of the
+// data, so the pass that sizes each column's code space checks every nonzero
+// it reads; a value outside that verdict makes the call return 1 before
+// anything is packed.
 //
 // Layout contract (mirrors CompressedPairGroup):
 //   slots [0, n_z)           : zero-zero combos, one per populated sf bin
@@ -30,6 +36,7 @@
 //                              lexicographic by (x1, x2, bin))
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <type_traits>
 #include <vector>
@@ -63,13 +70,26 @@ struct CodeHist {
   }
 };
 
+// A nonzero as a count: float data rounded half to even (nearbyint under
+// the default rounding mode, as numpy's round), integer data as is.
 template <typename DataT>
 inline int64_t as_count(DataT x) {
   if constexpr (std::is_integral_v<DataT>) {
     return static_cast<int64_t>(x);
   } else {
-    // non-negative integral count data: floor(x + 0.5) == round
-    return static_cast<int64_t>(x + DataT(0.5));
+    return static_cast<int64_t>(std::nearbyint(x));
+  }
+}
+
+// A nonzero the caller's verdict covers: its count lies in [0, vmax_cap]
+// (false for NaN and infinities).
+template <typename DataT>
+inline bool valid_count(DataT x, int64_t vmax_cap) {
+  if constexpr (std::is_integral_v<DataT>) {
+    return x >= 0 && static_cast<int64_t>(x) <= vmax_cap;
+  } else {
+    const double d = std::nearbyint(static_cast<double>(x));
+    return d >= 0.0 && d <= static_cast<double>(vmax_cap);
   }
 }
 
@@ -112,14 +132,15 @@ void merge_columns(const int64_t* indptr, const IdxT* indices,
 }
 
 template <typename IdxT, typename DataT>
-void compress_pairs_impl(int64_t n_cells, int64_t n_genes, int64_t n_pairs,
-                         int32_t nbins, const int64_t* indptr,
-                         const IdxT* indices, const DataT* data,
-                         const int32_t* bins, const double* bin_values,
-                         const int64_t* idx1, const int64_t* idx2,
-                         const int64_t* cap_off, float* values_1,
-                         float* values_2, float* counts, float* inv_sf,
-                         uint8_t* sf_bin, int32_t* n_unique) {
+int32_t compress_pairs_impl(int64_t n_cells, int64_t n_genes, int64_t n_pairs,
+                            int32_t nbins, const int64_t* indptr,
+                            const IdxT* indices, const DataT* data,
+                            const int32_t* bins, const double* bin_values,
+                            int64_t vmax_cap, const int64_t* idx1,
+                            const int64_t* idx2, const int64_t* cap_off,
+                            float* values_1, float* values_2, float* counts,
+                            float* inv_sf, uint8_t* sf_bin,
+                            int32_t* n_unique) {
   std::vector<int64_t> bin_total(nbins, 0);
   for (int64_t c = 0; c < n_cells; ++c) bin_total[bins[c]]++;
 
@@ -130,16 +151,23 @@ void compress_pairs_impl(int64_t n_cells, int64_t n_genes, int64_t n_pairs,
     col_vmax[idx1[p]] = 0;
     col_vmax[idx2[p]] = 0;
   }
+  int32_t refused = 0;
 #pragma omp parallel for schedule(dynamic, 64)
   for (int64_t g = 0; g < n_genes; ++g) {
     if (col_vmax[g] < 0) continue;
     int64_t vmax = 0;
     for (int64_t k = indptr[g]; k < indptr[g + 1]; ++k) {
+      if (!valid_count(data[k], vmax_cap)) {
+#pragma omp atomic write
+        refused = 1;
+        break;
+      }
       const int64_t v = as_count(data[k]);
       if (v > vmax) vmax = v;
     }
     col_vmax[g] = vmax;
   }
+  if (refused) return 1;
 
   // per-thread inverse bin values (tiny, avoids a divide per slot)
   std::vector<float> inv_bin(nbins);
@@ -223,62 +251,42 @@ void compress_pairs_impl(int64_t n_cells, int64_t n_genes, int64_t n_pairs,
       n_unique[p] = static_cast<int32_t>(slot);
     }
   }
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Back-compat entry: int64 indices + pre-rounded int64 data.
-void compress_pairs_compact(int64_t n_cells, int64_t n_genes, int64_t n_pairs,
-                            int32_t nbins, const int64_t* indptr,
-                            const int64_t* indices, const int64_t* data,
-                            const int32_t* bins, const double* bin_values,
-                            const int64_t* idx1, const int64_t* idx2,
-                            const int64_t* cap_off, float* values_1,
-                            float* values_2, float* counts, float* inv_sf,
-                            uint8_t* sf_bin, int32_t* n_unique) {
-  compress_pairs_impl(n_cells, n_genes, n_pairs, nbins, indptr, indices, data,
-                      bins, bin_values, idx1, idx2, cap_off, values_1,
-                      values_2, counts, inv_sf, sf_bin, n_unique);
-}
-
-// Zero-copy entry over scipy's native buffers.  idx64: 1 = int64 indices,
-// 0 = int32.  data_f32: 1 = float32 data, 0 = float64.
-void compress_pairs_compact_v2(
+// Packs every pair over scipy's buffers as stored.  idx64: 1 = int64
+// indices, 0 = int32.  data_kind: 0 = float64, 1 = float32, 2 = int64,
+// 3 = int32 data.  Returns 0, or 1 when a nonzero's count is not in
+// [0, vmax_cap].
+int32_t compress_pairs_compact_v2(
     int64_t n_cells, int64_t n_genes, int64_t n_pairs, int32_t nbins,
     const int64_t* indptr, const void* indices, int32_t idx64,
-    const void* data, int32_t data_f32, const int32_t* bins,
-    const double* bin_values, const int64_t* idx1, const int64_t* idx2,
-    const int64_t* cap_off, float* values_1, float* values_2, float* counts,
-    float* inv_sf, uint8_t* sf_bin, int32_t* n_unique) {
-  if (idx64) {
-    if (data_f32)
-      compress_pairs_impl(n_cells, n_genes, n_pairs, nbins, indptr,
-                          static_cast<const int64_t*>(indices),
-                          static_cast<const float*>(data), bins, bin_values,
-                          idx1, idx2, cap_off, values_1, values_2, counts,
-                          inv_sf, sf_bin, n_unique);
-    else
-      compress_pairs_impl(n_cells, n_genes, n_pairs, nbins, indptr,
-                          static_cast<const int64_t*>(indices),
-                          static_cast<const double*>(data), bins, bin_values,
-                          idx1, idx2, cap_off, values_1, values_2, counts,
-                          inv_sf, sf_bin, n_unique);
-  } else {
-    if (data_f32)
-      compress_pairs_impl(n_cells, n_genes, n_pairs, nbins, indptr,
-                          static_cast<const int32_t*>(indices),
-                          static_cast<const float*>(data), bins, bin_values,
-                          idx1, idx2, cap_off, values_1, values_2, counts,
-                          inv_sf, sf_bin, n_unique);
-    else
-      compress_pairs_impl(n_cells, n_genes, n_pairs, nbins, indptr,
-                          static_cast<const int32_t*>(indices),
-                          static_cast<const double*>(data), bins, bin_values,
-                          idx1, idx2, cap_off, values_1, values_2, counts,
-                          inv_sf, sf_bin, n_unique);
+    const void* data, int32_t data_kind, const int32_t* bins,
+    const double* bin_values, int64_t vmax_cap, const int64_t* idx1,
+    const int64_t* idx2, const int64_t* cap_off, float* values_1,
+    float* values_2, float* counts, float* inv_sf, uint8_t* sf_bin,
+    int32_t* n_unique) {
+#define MEMENTO_PAIRS(IdxT, DataT)                                          \
+  compress_pairs_impl(n_cells, n_genes, n_pairs, nbins, indptr,             \
+                      static_cast<const IdxT*>(indices),                    \
+                      static_cast<const DataT*>(data), bins, bin_values,    \
+                      vmax_cap, idx1, idx2, cap_off, values_1, values_2,    \
+                      counts, inv_sf, sf_bin, n_unique)
+#define MEMENTO_PAIRS_DATA(IdxT)                                            \
+  switch (data_kind) {                                                      \
+    case 0: return MEMENTO_PAIRS(IdxT, double);                             \
+    case 1: return MEMENTO_PAIRS(IdxT, float);                              \
+    case 2: return MEMENTO_PAIRS(IdxT, int64_t);                            \
+    default: return MEMENTO_PAIRS(IdxT, int32_t);                           \
   }
+  if (idx64) MEMENTO_PAIRS_DATA(int64_t)
+  MEMENTO_PAIRS_DATA(int32_t)
+#undef MEMENTO_PAIRS_DATA
+#undef MEMENTO_PAIRS
 }
 
 }  // extern "C"

@@ -17,7 +17,6 @@ Counterpart of ``memento_tpu/ops/corr.py``.  Two paths:
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional
 
 import numpy as np
@@ -27,6 +26,7 @@ import torch
 from .. import native
 from ..device import resolve_device
 from .estimators import NoiseModel
+from .estimators import full_float32_matmul as _full_float32_matmul
 from .transport import compact_transport_dtype
 
 
@@ -82,27 +82,19 @@ def _kahan_add(acc, comp, update):
     return t, comp
 
 
-@contextlib.contextmanager
-def _full_float32_matmul():
-    """Float32 matrix products in full precision inside the block, whatever
-    the caller's TF32 setting; the setting is restored on exit."""
-    before = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = before
-
-
-def _gram_update(xb, inv_sf_b, inv_sf_sq_b, S, s1, sdiag, cS, cs1, csdiag):
+def _gram_update(xb, inv_sf_b, inv_sf_sq_b, S, s1, sdiag, cS, cs1, csdiag,
+                 cols=slice(None)):
     """Accumulate one dense cell block into the compensated Gram statistics.
-    ``xb`` may arrive in a compact integer dtype; it is cast on the device."""
+    ``xb`` may arrive in a compact integer dtype; it is cast on the device.
+    ``cols`` selects the output columns this accumulator holds: ``S`` is
+    ``[G, |cols|]`` and the per-gene sums ``[|cols|]`` (default all)."""
     xb = xb.to(torch.float32)
     wx = xb * inv_sf_b[:, None]
-    S, cS = _kahan_add(S, cS, wx.T @ wx)
-    s1, cs1 = _kahan_add(s1, cs1, wx.sum(0))
+    wc = wx[:, cols]
+    S, cS = _kahan_add(S, cS, wx.T @ wc)
+    s1, cs1 = _kahan_add(s1, cs1, wc.sum(0))
     sdiag, csdiag = _kahan_add(sdiag, csdiag,
-                               (inv_sf_sq_b[:, None] * xb).sum(0))
+                               (inv_sf_sq_b[:, None] * xb[:, cols]).sum(0))
     return S, s1, sdiag, cS, cs1, csdiag
 
 

@@ -21,6 +21,7 @@ turns replicate covariances into correlations.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple, Union
 
@@ -99,6 +100,52 @@ def mean_var_from_suffstats(s1, s2, s1sq, n_obs, q, model: NoiseModel):
     c = model.var_correction(q)
     m2 = s2 / n_obs - c * s1sq / n_obs
     return m1, m2 - m1 * m1
+
+
+def cov_from_suffstats(sxy, s1x, s1y, s_diag, n_obs, q, same_gene,
+                       model: NoiseModel):
+    """Covariance of two genes from weighted cross sums::
+
+        cov = sxy/N - [same_gene] c s_diag/N - (s1x/N)(s1y/N)
+
+    with ``sxy = sum x y / sf^2``, ``s1x``/``s1y = sum x / sf`` and
+    ``s_diag = sum x / sf^2``: the noise correction applies only to a gene
+    paired with itself.  Works on floats, numpy arrays and tensors alike
+    (``same_gene`` a bool or 0/1 of the same kind)."""
+    c = model.var_correction(q)
+    prod = sxy / n_obs - same_gene * 1.0 * (c * s_diag / n_obs)
+    return prod - (s1x / n_obs) * (s1y / n_obs)
+
+
+def suffstats_dense(X, inv_sf, inv_sf_sq):
+    """Per-gene sufficient statistics ``(s1, s2, s1sq)`` ``[G]`` of a dense
+    ``[N, G]`` cell block, as tensors on the block's device.
+
+    ``X`` may arrive in a compact integer transport dtype; it is cast to the
+    weights' dtype (float64 or float32; the cast of a count is exact).
+    ``inv_sf`` / ``inv_sf_sq`` are ``[N]`` reciprocal size factors, zero on
+    padding rows.  The sums are exact partials: summed over cell slabs they
+    give the whole matrix's statistics.  Float32 products run in full
+    precision whatever the caller's TF32 setting.
+    """
+    X = X.to(inv_sf.dtype)
+    with full_float32_matmul():
+        s1 = inv_sf @ X
+        s2 = inv_sf_sq @ (X * X)
+        s1sq = inv_sf_sq @ X
+    return s1, s2, s1sq
+
+
+@contextlib.contextmanager
+def full_float32_matmul():
+    """Float32 matrix products in full precision inside the block, whatever
+    the caller's TF32 setting; the setting is restored on exit."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 def suffstats_sparse(X, size_factor):
@@ -227,6 +274,9 @@ __all__ = [
     "get_noise_model",
     "is_absolute",
     "mean_var_from_suffstats",
+    "cov_from_suffstats",
+    "suffstats_dense",
+    "full_float32_matmul",
     "suffstats_sparse",
     "suffstats_scipy",
     "mean_var_sparse",

@@ -145,10 +145,12 @@ def test_results_match_and_detect_effects(pipelines):
 
 
 def test_api_refuses_what_is_not_ported(pipelines):
-    """Only the multi-GPU options still raise, each naming itself, in 1D as
-    in 2D and in ``get_corr_matrix`` (the 1D call once took them into
-    ``**kwargs`` and ran on one device); ``get_corr_matrix`` refuses a custom
-    estimator tuple as the JAX package does."""
+    """Every option of the JAX package's API runs in the port: ``mesh`` (a
+    CPU mesh here) and ``distributed=True`` (outside a process group: one
+    process) equal the plain runs bit for bit, in 1D, in 2D and in
+    ``get_corr_matrix`` (atol 1e-5); what is still refused is refused as the
+    JAX package refuses it: ``get_corr_matrix`` with a custom estimator
+    tuple, and the default device (the card) where there is none."""
     _, port_ad = pipelines
     groups = mtt.get_groups(port_ad)
     tx = np.asarray(groups["condition"], float)[:, None]
@@ -157,14 +159,21 @@ def test_api_refuses_what_is_not_ported(pipelines):
     mtt.compute_2d_moments(ad, [(genes[0], genes[1]), (genes[2], genes[3])])
     kw = dict(covariate=np.ones((4, 1)), treatment=tx, num_boot=16,
               approx=True, device="cpu", verbose=0)
-    for option, match in [(dict(mesh=object()), "mesh"),
-                          (dict(distributed=True), "distributed")]:
-        for test in (mtt.ht_1d_moments, mtt.ht_2d_moments):
-            with pytest.raises(NotImplementedError, match=match):
-                test(ad, **dict(kw, **option))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        mtt.get_corr_matrix(ad, ad.uns["memento"]["groups"][0],
-                            mesh=object(), device="cpu")
+    for test, result in ((mtt.ht_1d_moments, mtt.get_1d_ht_result),
+                         (mtt.ht_2d_moments, mtt.get_2d_ht_result)):
+        test(ad, **kw)
+        want = result(ad)
+        for option in (dict(mesh=("cpu", "cpu")), dict(distributed=True)):
+            test(ad, **dict(kw, **option))
+            got = result(ad)
+            for col in want.columns:
+                np.testing.assert_array_equal(got[col], want[col],
+                                              err_msg=f"{option} {col}")
+    group = ad.uns["memento"]["groups"][0]
+    np.testing.assert_allclose(
+        mtt.get_corr_matrix(ad, group, mesh=("cpu", "cpu")),
+        mtt.get_corr_matrix(ad, group, device="cpu"), atol=1e-5,
+        equal_nan=True)
     custom = ad.copy()
     custom.uns["memento"]["estimator_type"] = (len, len)
     with pytest.raises(NotImplementedError, match="registry estimator_type"):

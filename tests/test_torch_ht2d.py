@@ -296,16 +296,22 @@ def test_2d_entry_points_raise_without_cuda(inputs, rng):
 
 
 @pytest.mark.parametrize("option,match", [
-    (dict(mesh=object()), "mesh"),
+    (dict(mesh=("cpu", "cpu")), "mesh"),
     (dict(distributed=True), "distributed"),
 ])
 def test_run_ht_2d_refuses_what_is_not_ported(inputs, option, match):
+    """The multi-device options once raised here; they now run and equal
+    the plain run bit for bit: a CPU mesh of two devices, and
+    ``distributed=True`` outside a process group (one process)."""
     common = _common(inputs, model=t_est.HYPER_RELATIVE, device="cpu")
-    common.update(option)
     ported = from_jax_outputs(compressed_pairs=inputs["comps"])
-    with pytest.raises(NotImplementedError, match=match):
-        t_ht.run_ht_2d(0, compressed_pairs=ported["compressed_pairs"],
-                       **common)
+    want = t_ht.run_ht_2d(0, compressed_pairs=ported["compressed_pairs"],
+                          **common)
+    got = t_ht.run_ht_2d(0, compressed_pairs=ported["compressed_pairs"],
+                         **common, **option)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key],
+                                      err_msg=f"{match} {key}")
 
 
 @pytest.mark.parametrize("sampler", ["multinomial", "poisson", "gaussian"])

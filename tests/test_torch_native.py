@@ -154,8 +154,8 @@ def test_pair_packer_v2_exact(rng, idx, dtype):
 
 @pytest.mark.parametrize("kind", ["fractional", "int64_data"])
 def test_pair_packer_rounding_path_exact(rng, kind):
-    """Fractional data, or data in an integer dtype, takes the rounding
-    entry (``compress_pairs_compact``): still equal to both packers."""
+    """Fractional data (rounded half to even as the C++ reads it), or data
+    in an integer dtype (read as stored): still equal to both packers."""
     X = _matrix(rng, dtype=np.float64)
     if kind == "fractional":
         X.data[::3] += 0.3
@@ -168,6 +168,34 @@ def test_pair_packer_rounding_path_exact(rng, kind):
                    PAIR_FIELDS)
     _assert_fields(got, t_compress.compress_pairs(X, approx, idx1, idx2,
                                                   backend="numpy"),
+                   PAIR_FIELDS)
+
+
+@pytest.mark.parametrize("kind", ["fractional", "int64_data"])
+def test_pair_packer_checks_the_data_once_per_matrix(rng, monkeypatch, kind):
+    """Data the range prep does not cover gets its verdict once per matrix:
+    later tiles of the same matrix reuse it, and an in-place edit is still
+    packed as a fresh copy packs it."""
+    X = _matrix(rng, dtype=np.float64)
+    if kind == "fractional":
+        X.data[::3] += 0.3
+    else:
+        X.data = X.data.astype(np.int64)
+    approx = _approx(rng, X.shape[0])
+    scans = []
+    stats = t_native._rounded_stats
+    monkeypatch.setattr(t_native, "_rounded_stats",
+                        lambda d: scans.append(d.size) or stats(d))
+    idx1, idx2 = _pairs(rng, X.shape[1], 30)
+    for lo in range(0, 30, 10):  # three tiles of one matrix
+        t_compress.compress_pairs(X, approx, idx1[lo:lo + 10],
+                                  idx2[lo:lo + 10], backend="native")
+    assert scans == [X.nnz]
+    X.data[::2] = X.data[::2] * 2 + 1  # past the cached largest value
+    got = t_compress.compress_pairs(X, approx, idx1, idx2, backend="native")
+    assert len(scans) == 2
+    _assert_fields(got, t_compress.compress_pairs(X.copy(), approx, idx1,
+                                                  idx2, backend="numpy"),
                    PAIR_FIELDS)
 
 
@@ -208,6 +236,48 @@ def test_negative_data_is_refused(rng):
         t_compress.compress_group(X, approx, backend="native")
     with pytest.raises(ValueError, match="native pair packer"):
         t_compress.compress_pairs(X, approx, [0], [1], backend="native")
+
+
+@pytest.mark.parametrize("packer", ["group", "pair"])
+@pytest.mark.parametrize("edit", ["add_half", "negative"])
+def test_in_place_edit_of_the_data_is_seen(rng, packer, edit):
+    """The packers cache their verdict on the matrix (integral, non-negative,
+    largest value); an in-place edit of ``X.data`` that keeps nnz must pack
+    what a fresh copy packs, and negative counts must raise as they do on a
+    fresh copy.  The JAX package keeps the same cache, so the references are
+    a fresh copy and the port's numpy packer."""
+    X = sparse.csc_matrix(rng.poisson(2.0, size=(200, 5)).astype(np.float64))
+    approx = _approx(rng, 200)
+    idx1, idx2 = np.array([0, 1, 2, 4]), np.array([3, 4, 0, 2])
+
+    def pack(M, backend="native"):
+        if packer == "group":
+            return t_compress.compress_group(M, approx, backend=backend)
+        return t_compress.compress_pairs(M, approx, idx1, idx2,
+                                         backend=backend)
+
+    pack(X)  # caches the verdict on the integer data
+    nnz = X.nnz
+    if edit == "add_half":
+        X.data += 0.5
+    else:
+        X.data[rng.choice(nnz, 5, replace=False)] = -3.0
+    assert X.nnz == nnz
+    if edit == "negative":
+        with pytest.raises(ValueError, match="native"):
+            pack(X)
+        with pytest.raises(ValueError, match="native"):
+            pack(X.copy())
+        return
+    got = pack(X)
+    fields = GROUP_FIELDS if packer == "group" else PAIR_FIELDS
+    _assert_fields(got, pack(X.copy()), fields)
+    if packer == "group":
+        _assert_same_combos(got, pack(X.copy(), "numpy"))
+        # k + 0.5 rounds half to even: only even values are packed
+        assert not np.any(got.values % 2)
+    else:
+        _assert_fields(got, pack(X.copy(), "numpy"), fields)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
