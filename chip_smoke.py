@@ -14,13 +14,14 @@ Phases, one line each:
       200,000 cells x 1,024 genes, 2 conditions x 2 replicates,
       ``hyper_relative``, bootstrap resampling with GEV tail refinement,
       B = 1000, a 1.6x mean effect planted on 64 genes, its host stages
-      through the native layer (the call counts must show it); then the same
-      API on a small slice on the card and on the CPU (plain path) for
-      agreement;
+      through the native layer (the call counts must show it), and its
+      phase report (``profiling.report``); then the same API on a small
+      slice on the card and on the CPU (plain path) for agreement;
   (e) the 2D main path (differential correlation) on the state (c) left:
       512 unordered gene pairs over the genes that passed the filter, same
-      options, a correlation planted on 64 of the pairs in condition 1 only;
-      then the same API on the small slice on the card and on the CPU;
+      options, a correlation planted on 64 of the pairs in condition 1 only,
+      and its phase report; then the same API on the small slice on the
+      card and on the CPU;
   (f) ``get_corr_matrix`` for one group of 50,000 cells on the card, held
       against the pair path's host float64 correlations, and against the CPU
       on the small slice;
@@ -54,7 +55,7 @@ Phases, one line each:
       tests with ``distributed=True`` and without in the same process (bit
       for bit equal, 2 launches a path per rank), rank 0's merged results
       calibrated as (c)'s and (e)'s, its 1D result bit for bit (i1)'s run
-      without a mesh;
+      without a mesh; each (i1) run's ``profiling.steady_state``;
   (b) the kernel against its plain PyTorch version on each main path's own
       tile, B = 2000: W = 1 and W = 2 on the 1D tile, W = 5 on the 2D tile,
       and on the first tile of each path's tiling in (i) (W = 2 on 240
@@ -65,9 +66,18 @@ Phases, one line each:
       launches with one seed bit for bit, and B = 1000 against the first
       1000 replicates of B = 2000;
   (d) the kernel's time and its plain version's at each main path's tile
-      shape (W = 2 and W = 5), B = 1000 and B = 10000, beside the bound; the
-      wrapper's tensor operations and the launch alone, the launch with the
-      rows longest first and in index order.
+      shape (W = 2 and W = 5), B = 1000 and B = 10000, beside the bound
+      (``memento_tpu_torch.utils.roofline``: which resource bounds it and
+      the share of the bound reached); the wrapper's tensor operations and
+      the launch alone, the launch with the rows longest first and in index
+      order;
+  (j) the main paths under the device trace: one ``ht_1d_moments`` and one
+      ``ht_2d_moments`` at (c)'s and (e)'s settings on their state inside
+      ``profiling.device_trace`` (Chrome traces in ``chiprun_out/traces/``),
+      each bit for bit (c)'s or (e)'s result with one cascade launch; per
+      path the traced window, the device busy share, the top device
+      operations and the longest idle gaps with the phases that overlap
+      them (``trace_summary``); then one launch closed by ``sync_pull``.
 
 Then one JSON line of kernels, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -101,32 +111,13 @@ PLANT_MIN_MEAN = 0.5  # planted pairs take genes with at least this base mean
 # genes under the 0.07 mean filter; at 1.0 about 92% of genes pass it
 SIM_SCALE = 1.0
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FP32 operations/s
-PEAK_BYTES_S = 3.35e12
-PEAK_FP32_S = 67e12
-
-# Operations per draw of the cascade kernel (each arithmetic instruction one
-# operation), counted from the first design of csrc/cascade_bootstrap.cu: one
-# Philox call per draw and the CDF rebuilt by every thread.  The kernel has
-# since been redesigned and does less than this (its time has read below
-# this count's bound), but these counts stay unchanged as the common
-# yardstick of every record: ``bound_first_design_ms``.  ``bound_ms`` is the
-# redesigned kernel's own count, below.  Note that PEAK_FP32_S counts a
-# fused multiply-add as two operations and both counts as one: half of such
-# a bound is about the whole FP32 issue rate.
-OPS_PHILOX = 10 * 10 + 8  # 10 rounds of 2 mul.hi, 2 mul.lo, 4 xor, 2 adds
-OPS_GAUSS = 30  # 2 uniforms, log, sqrt, cos, CF term, round, clamp
-OPS_TABLE_FIXED = 20  # uniform, exp, sqrt, trip count, shift, clamp
-OPS_TABLE_STEP = 5  # compare-add, multiply, divide, add
-OPS_PER_WEIGHT = 2  # multiply-add into each of the W sums
-# The redesigned kernel's own counts, from its SASS (loads, branches and
-# address arithmetic not counted): a Philox call serves a group of four bins
-# (one call for its table bins, one for its Gaussian bins), the table draw
-# is a 5-step search of a shared-memory table.
-OPS_PHILOX_CALL = 10 * 4  # 10 rounds of 2 wide multiplies, 2 3-input xors
-OPS_NORMALS = 38  # four uniforms, two Box-Muller pairs (log, sqrt, sin, cos)
-OPS_TABLE_DRAW = 19  # 5 x (compare, add), shift, rescale, shift, clamp
-OPS_GAUSS_DRAW = 11  # sigma, CF term, round, clamp
+# phase (d)'s name for the resource that bounds a launch
+BOUND_BY = {"hbm": "bytes", "fp32": "operations"}
+# phase (j): where the device traces land (a gitignored output directory)
+TRACE_DIR = os.path.join("chiprun_out", "traces")
+CASCADE_KERNEL = "cascade_bootstrap_kernel"  # its name in a device trace
+COLS_1D = ("de_coef", "de_se", "de_pval", "dv_coef", "dv_se", "dv_pval")
+COLS_2D = ("corr_coef", "corr_se", "corr_pval")
 # same-seed comparison of the kernel with the plain version on the kernel's
 # Philox stream: limits on the relative differences of the sums.  On the
 # card most sums come out bit-identical (median 0) and at least 99.998% of
@@ -693,52 +684,6 @@ def main_path_tile_2d(adata, model, idx1, idx2, device, tile=None):
             weights.reshape(-1, u, 5).contiguous(), n_obs)
 
 
-def cascade_work(counts: np.ndarray, w_dim: int, num_boot: int):
-    """(bytes, operations) the cascade bootstrap needs on these inputs:
-    each input read once, the output written once; operations per draw for
-    the bins this data occupies (absorbing bins draw no random numbers)."""
-    t_dim, u_dim = counts.shape
-    nbytes = 4 * (counts.size * (1 + w_dim) + t_dim + t_dim * w_dim * num_boot)
-    ctail = np.cumsum(counts[:, ::-1], axis=1)[:, ::-1]
-    occupied = counts > 0
-    absorbing = occupied & (counts >= ctail)
-    drawn = occupied & ~absorbing
-    gauss = drawn & (counts >= 8.0)
-    table = drawn & (counts < 8.0)
-    lam = np.where(table, counts, 0.0)
-    n_iter = np.minimum(32, np.ceil(lam + 5.0 * np.sqrt(lam) + 4.0)) * table
-    per_boot = (drawn.sum() * OPS_PHILOX + gauss.sum() * OPS_GAUSS
-                + table.sum() * OPS_TABLE_FIXED + n_iter.sum() * OPS_TABLE_STEP
-                + occupied.sum() * (OPS_PER_WEIGHT * w_dim + 1))
-    return nbytes, float(per_boot) * num_boot
-
-
-def cascade_work_redesign(counts: np.ndarray, w_dim: int, num_boot: int):
-    """(bytes, operations) of the redesigned kernel on these inputs: the
-    bytes of ``cascade_work``, the operations by the ``OPS_*`` counts of the
-    redesign, with one Philox call per group of four bins and branch."""
-    t_dim, u_dim = counts.shape
-    nbytes, _ = cascade_work(counts, w_dim, num_boot)
-    c = np.pad(counts, ((0, 0), (0, (-u_dim) % 4)))
-    ctail = np.cumsum(c[:, ::-1], axis=1)[:, ::-1]
-    occupied = c > 0
-    drawn = occupied & ~(c >= ctail)
-    gauss = (drawn & (c >= 8.0)).reshape(t_dim, -1, 4)
-    table = (drawn & (c < 8.0)).reshape(t_dim, -1, 4)
-    per_boot = (table.any(2).sum() * OPS_PHILOX_CALL
-                + gauss.any(2).sum() * (OPS_PHILOX_CALL + OPS_NORMALS)
-                + table.sum() * OPS_TABLE_DRAW + gauss.sum() * OPS_GAUSS_DRAW
-                + occupied.sum() * (OPS_PER_WEIGHT * w_dim + 1))
-    return nbytes, float(per_boot) * num_boot
-
-
-def bound(nbytes: float, ops: float):
-    """The least time in ms for this work, and what bounds it."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
-                                       else "operations")
-
-
 def same_seed_check(cuda_kernels, sampling, counts, weights, n_rows, seed,
                     label):
     """The kernel against the plain version on the kernel's own Philox
@@ -945,6 +890,7 @@ def mesh_runs(mtt, adata, dev):
     mesh run bit for bit equal to the run without one, 4 launches each.
     Returns ``(numbers, launches by path, the 1D run without a mesh)``."""
     from memento_tpu_torch.parallel.mesh import make_mesh
+    from memento_tpu_torch.utils import profiling
 
     covariate, treatment = design(mtt, adata)
     ht = dict(covariate=covariate, treatment=treatment, num_boot=NUM_BOOT,
@@ -952,22 +898,30 @@ def mesh_runs(mtt, adata, dev):
     meshes = {"visible": make_mesh(), "cuda0_twice": make_mesh(
         ["cuda:0", "cuda:0"])}
     paths = (("1d", mtt.ht_1d_moments, mtt.get_1d_ht_result, TILE_1D_I,
-              ("de_coef", "de_se", "de_pval", "dv_coef", "dv_se", "dv_pval")),
+              COLS_1D),
              ("2d", mtt.ht_2d_moments, mtt.get_2d_ht_result, TILE_2D_I,
-              ("corr_coef", "corr_se", "corr_pval")))
+              COLS_2D))
     out, launches, bases = {}, {}, {}
     for path, test, result, tile, cols in paths:
         def run(**kw):
             test(adata, tile_size=tile, **ht, **kw)
             return result(adata)
 
+        # each run's throughput without its first tile's one-off, from its
+        # own phases
+        profiling.reset_timings()
         base, info = measured(run, device=dev)
+        info["steady_state"] = profiling.steady_state(info["s"], f"ht{path}",
+                                                      len(base))
         require(info["cascade_launches"] == 4,
                 f"{path} at tile {tile}: {info}")
         out[f"{path}_no_mesh"] = info
         bases[path] = base
         for name, mesh in meshes.items():
+            profiling.reset_timings()
             res, info = measured(run, mesh=mesh)
+            info["steady_state"] = profiling.steady_state(
+                info["s"], f"ht{path}", len(res))
             require(info["cascade_launches"] == 4,
                     f"{path} on mesh {name}: {info}")
             equal_tables(res, base, cols, f"{path} on mesh {name}")
@@ -1097,10 +1051,9 @@ def distributed_worker(rank: int, port: str, outdir: str, seed: int) -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     for path, test, result, tile, label, cols in (
             ("1d", mtt.ht_1d_moments, mtt.get_1d_ht_result, TILE_1D_I,
-             "ht1d", ("de_coef", "de_se", "de_pval", "dv_coef", "dv_se",
-                      "dv_pval")),
+             "ht1d", COLS_1D),
             ("2d", mtt.ht_2d_moments, mtt.get_2d_ht_result, TILE_2D_I,
-             "ht2d", ("corr_coef", "corr_se", "corr_pval"))):
+             "ht2d", COLS_2D)):
         cuda_kernels.reset_launches()
         profiling.reset_timings()
         torch.cuda.synchronize(dev)
@@ -1178,10 +1131,116 @@ def distributed_runs(seed: int, result_1d_tile, planted2):
                              "distributed 2D")}
     same_as_parent = all(
         np.array_equal(arrays[f"1d_{col}"], np.asarray(result_1d_tile[col]),
-                       equal_nan=True) for col in ("de_coef", "de_se",
-                                                   "de_pval", "dv_coef",
-                                                   "dv_se", "dv_pval"))
+                       equal_nan=True) for col in COLS_1D)
     return ranks, cal, same_as_parent
+
+
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_summary(path):
+    """What a Chrome trace of ``torch.profiler`` says about the device.
+
+    The window spans every complete event of the trace.  Device activity is
+    its kernels, copies and memsets (``DEVICE_CATEGORIES``); the busy share
+    is the union of their intervals over the window, ``None`` when the trace
+    holds no device event (the profiler saw no device).  ``ops`` sums the
+    device events by name, most time first.  ``gaps`` are the three longest
+    intervals of the window with no device activity, each with the three
+    host ranges (``user_annotation``: the ``phase`` names, on any thread)
+    that overlap it most, as ``[name, overlap_ms]``.
+    """
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    lo = min(e["ts"] for e in events)
+    hi = max(e["ts"] + e["dur"] for e in events)
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in DEVICE_CATEGORIES)
+    busy, gaps, cursor = 0.0, [], lo
+    for start, end in device:
+        if start > cursor:
+            gaps.append((cursor, start))
+        busy += max(0.0, end - max(start, cursor))
+        cursor = max(cursor, end)
+    if hi > cursor:
+        gaps.append((cursor, hi))
+    ops = {}
+    for e in events:
+        if e.get("cat") in DEVICE_CATEGORIES:
+            count, us = ops.get(e["name"], (0, 0.0))
+            ops[e["name"]] = (count + 1, us + e["dur"])
+    ranges = [e for e in events if e.get("cat") == "user_annotation"]
+
+    def overlapping(start, end):
+        by_name = {}
+        for e in ranges:
+            overlap = min(end, e["ts"] + e["dur"]) - max(start, e["ts"])
+            if overlap > 0:
+                by_name[e["name"]] = by_name.get(e["name"], 0.0) + overlap
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+        return [[name, us / 1e3] for name, us in top]
+
+    longest = sorted(gaps, key=lambda g: g[0] - g[1])[:3]
+    return {
+        "window_s": (hi - lo) / 1e6,
+        "busy_share": busy / (hi - lo) if device else None,
+        "device_events": len(device),
+        "ops": [{"name": name, "count": count, "ms": us / 1e3}
+                for name, (count, us) in sorted(ops.items(),
+                                                key=lambda kv: -kv[1][1])],
+        "gaps": [{"at_ms": (start - lo) / 1e3, "ms": (end - start) / 1e3,
+                  "phases": overlapping(start, end)}
+                 for start, end in longest],
+        "bytes": os.path.getsize(path),
+    }
+
+
+def traced_paths(mtt, adata, dev, base, base2, tile_1d, seed):
+    """(j): one ``ht_1d_moments`` and one ``ht_2d_moments`` at (c)'s and
+    (e)'s settings on their state, each under ``device_trace``; each result
+    bit for bit (c)'s or (e)'s, one cascade launch a path (by the counter
+    and, where the trace holds device events, by the trace).  Then one
+    launch on the 1D tile closed by ``sync_pull``.  Returns each path's
+    ``trace_summary`` and its traced call's seconds."""
+    import torch
+
+    from memento_tpu_torch.ops import cuda_kernels
+    from memento_tpu_torch.utils.profiling import (TRACE_FILE, device_trace,
+                                                   sync_pull)
+
+    covariate, treatment = design(mtt, adata)
+    ht = dict(covariate=covariate, treatment=treatment, num_boot=NUM_BOOT,
+              resampling="bootstrap", approx=False, verbose=0, device=dev)
+    out = {}
+    for path, test, result, want, cols in (
+            ("1d", mtt.ht_1d_moments, mtt.get_1d_ht_result, base, COLS_1D),
+            ("2d", mtt.ht_2d_moments, mtt.get_2d_ht_result, base2, COLS_2D)):
+        logdir = os.path.join(TRACE_DIR, path)
+        cuda_kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with device_trace(logdir, dev):
+            test(adata, **ht)
+            torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        launches = cuda_kernels.LAUNCHES["cascade_bootstrap"]
+        equal_tables(result(adata), want, cols, f"(j) {path} under the trace")
+        require(launches == 1, f"(j) {path}: {launches} cascade launches")
+        summary = trace_summary(os.path.join(logdir, TRACE_FILE))
+        traced = sum(op["count"] for op in summary["ops"]
+                     if CASCADE_KERNEL in op["name"])
+        require(traced == 1 or summary["busy_share"] is None,
+                f"(j) {path}: {traced} cascade kernels in the trace")
+        out[path] = {"call_s": call_s, "trace_launches": traced, **summary}
+    counts, weights, n_obs = tile_1d
+    sums = cuda_kernels.fused_bootstrap_sums_cuda(counts, weights, n_obs,
+                                                  NUM_BOOT, seed)
+    pulled = sync_pull({"sums": [sums]})
+    require(pulled == float(sums.nansum()),
+            f"(j) sync_pull {pulled} against nansum {float(sums.nansum())}")
+    out["sync_pull"] = pulled
+    return out
 
 
 def main() -> int:
@@ -1207,6 +1266,7 @@ def main() -> int:
     from memento_tpu_torch.ops import cuda_kernels, kernel_build, sampling
     from memento_tpu_torch.ops.estimators import HYPER_RELATIVE
     from memento_tpu_torch.utils import profiling
+    from memento_tpu_torch.utils.roofline import roofline
 
     if any(m == "jax" or m.startswith(("jax.", "memento_tpu."))
            or m == "memento_tpu" for m in sys.modules):
@@ -1276,6 +1336,7 @@ def main() -> int:
         f"{planted_coef:.3f} "
         f"(log 1.6 = 0.470) | null median p {null_median:.3f} | "
         f"null FP@0.05 {null_fp:.3f}")
+    log(f"(c) phases of the 1D main path:\n{profiling.report()}")
 
     # the same API on a small slice, on the card and on the CPU (plain path):
     # observed coefficients are deterministic and must agree
@@ -1333,6 +1394,7 @@ def main() -> int:
         f"{busy2:.3f} | power {power2:.3f} | planted mean coef "
         f"{planted_coef2:.3f} | null median p {null_median2:.3f} | "
         f"null FP@0.05 {null_fp2:.3f}")
+    log(f"(e) phases of the 2D main path:\n{profiling.report()}")
 
     # the same API on the small slice, on the card and on the CPU
     s_idx1, s_idx2 = draw_pairs(small_ad["cuda"].n_vars, 48)
@@ -1405,6 +1467,9 @@ def main() -> int:
     log(f"(i1) mesh: 1D at tile {TILE_1D_I}, 2D at tile {TILE_2D_I}, 4 tiles "
         f"each, without a mesh, on make_mesh() and on cuda:0 twice: bit for "
         f"bit equal, 4 launches each | {json.dumps(mesh_info)} | {card}")
+    log("(i1) steady state without the first tile's one-off (oneoff_s, "
+        "steady_s, steady_items_per_s) by run: " + json.dumps(
+            {k: v["steady_state"] for k, v in mesh_info.items()}))
     stream_info = streamed_moments(mtt, adata, X, obs, genes)
     log(f"(i2) streamed moments on make_mesh() ({N_CELLS} x {N_GENES}): "
         f"'high' within rtol 1e-10 and 'fast' within the JAX tolerances of "
@@ -1534,9 +1599,11 @@ def main() -> int:
                     3 * 10 * timings[tile_w, NUM_BOOT][1] < 60e3:
                 plain_ms = time_ms(lambda: sampling.fused_bootstrap_sums(
                     counts, weights, n_obs, num_boot, 7), reps=2)
-            first_ms, _ = bound(*cascade_work(counts_host, tile_w, num_boot))
-            bound_ms, bound_by = bound(*cascade_work_redesign(
-                counts_host, tile_w, num_boot))
+            roof = roofline(counts_host, num_boot, ms / 1e3, tile_w)
+            bound_ms = 1e3 * roof["bound_s"]
+            bound_by = BOUND_BY[roof["limiting_resource"]]
+            first_ms = 1e3 * max(roof["t_memory_bound_s"],
+                                 roof["t_compute_bound_first_design_s"])
             if ms < bound_ms:
                 raise AssertionError(f"W={tile_w} B={num_boot}: {ms} ms is "
                                      f"below the bound of {bound_ms} ms")
@@ -1564,7 +1631,41 @@ def main() -> int:
                 f"launch in index order "
                 f"{parts['launch_index_order_ms']:.3f}) | plain "
                 f"{plain_txt} | bound {bound_ms:.4f} ms ({bound_by}; by the "
-                f"first design's count {first_ms:.4f} ms) | {card}")
+                f"first design's count {first_ms:.4f} ms) | roofline: "
+                f"{roof['limiting_resource']} bound, {bound_ms / ms:.3f} of "
+                f"the bound reached (fp32 {roof['fp32_utilization']:.3f}, "
+                f"hbm {roof['hbm_utilization']:.4f}), "
+                f"{roof['useful_draws_per_s']:.4g} useful draws/s, "
+                f"{roof['philox_calls_per_replicate']} Philox calls a "
+                f"replicate | {card}")
+
+    # ---- (j) the main paths under the device trace --------------------------
+    t_j = time.perf_counter()
+    traces = traced_paths(mtt, adata, dev, result, result2, tiles["1d"],
+                          args.seed + 17)
+    for path in ("1d", "2d"):
+        t = traces[path]
+        busy = ("not measured: the trace holds no device event (the "
+                "profiler saw no kernel, copy or memset)"
+                if t["busy_share"] is None else f"{t['busy_share']:.4f}")
+        top = [[o["name"][:80], o["count"], round(o["ms"], 3)]
+               for o in t["ops"][:5]]
+        gaps = [[round(g["at_ms"], 3), round(g["ms"], 3),
+                 [[name, round(ms, 3)] for name, ms in g["phases"]]]
+                for g in t["gaps"]]
+        log(f"(j) {path} main path under device_trace ({TRACE_DIR}/{path}): "
+            f"bit for bit (c)/(e)'s result, {t['trace_launches']} cascade "
+            f"launch in the trace | window {t['window_s']:.3f} s (call "
+            f"{t['call_s']:.3f} s with the profiler's start and the trace's "
+            f"export) | device busy share {busy} over "
+            f"{t['device_events']} device events | top "
+            f"device operations (name, count, ms) {json.dumps(top)} | "
+            f"longest idle gaps (at ms, ms, phases overlapping most with "
+            f"their ms) {json.dumps(gaps)} | trace {t['bytes']} bytes | "
+            f"{card}")
+    log(f"(j) sync_pull closed one launch on the 1D tile: "
+        f"{traces['sync_pull']!r} = float(out.nansum()) | phase (j) "
+        f"{time.perf_counter() - t_j:.1f} s")
 
     def numbers(key, tile_w, launches):
         ms, plain_ms, bound_ms, bound_by = timings[tile_w, NUM_BOOT]

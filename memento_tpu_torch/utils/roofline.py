@@ -1,0 +1,144 @@
+"""Speed-of-light accounting for the cascade bootstrap kernel on the H100.
+
+Counterpart of ``memento_tpu/utils/roofline.py``.  For one tile of kernel
+inputs it counts the bytes the work must move (each input read once, the
+output written once) and the arithmetic the kernel
+(``csrc/cascade_bootstrap.cu``) does on these inputs, bin by bin as the
+data occupies them, and sets both against the card's peak rates.  The
+least time for the work is the larger of the two quotients.
+
+Two operation counts are kept: the redesigned kernel's own (``ops``), and
+the first design's (``ops_first_design``), which every record since the
+first port uses as the common yardstick.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FP32 operations/s
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
+
+# Operations per draw of the cascade kernel (each arithmetic instruction one
+# operation), counted from the first design of csrc/cascade_bootstrap.cu: one
+# Philox call per draw and the CDF rebuilt by every thread.  The kernel has
+# since been redesigned and does less than this (its time has read below
+# this count's bound), but these counts stay unchanged as the common
+# yardstick of every record: ``ops_first_design``.  ``ops`` is the
+# redesigned kernel's own count, below.  Note that PEAK_FP32_S counts a
+# fused multiply-add as two operations and both counts as one: half of such
+# a bound is about the whole FP32 issue rate.
+OPS_PHILOX = 10 * 10 + 8  # 10 rounds of 2 mul.hi, 2 mul.lo, 4 xor, 2 adds
+OPS_GAUSS = 30  # 2 uniforms, log, sqrt, cos, CF term, round, clamp
+OPS_TABLE_FIXED = 20  # uniform, exp, sqrt, trip count, shift, clamp
+OPS_TABLE_STEP = 5  # compare-add, multiply, divide, add
+OPS_PER_WEIGHT = 2  # multiply-add into each of the W sums
+# The redesigned kernel's own counts, from its SASS (loads, branches and
+# address arithmetic not counted): a Philox call serves a group of four bins
+# (one call for its table bins, one for its Gaussian bins), the table draw
+# is a 5-step search of a shared-memory table.
+OPS_PHILOX_CALL = 10 * 4  # 10 rounds of 2 wide multiplies, 2 3-input xors
+OPS_NORMALS = 38  # four uniforms, two Box-Muller pairs (log, sqrt, sin, cos)
+OPS_TABLE_DRAW = 19  # 5 x (compare, add), shift, rescale, shift, clamp
+OPS_GAUSS_DRAW = 11  # sigma, CF term, round, clamp
+
+
+def _first_design(counts: np.ndarray, w_dim: int, num_boot: int):
+    """Operations of the first design on these inputs and its bin classes:
+    absorbing bins (a row's last occupied bin) draw no random numbers, the
+    others a Gaussian at 8 or more, a table draw below."""
+    ctail = np.cumsum(counts[:, ::-1], axis=1)[:, ::-1]
+    occupied = counts > 0
+    absorbing = occupied & (counts >= ctail)
+    drawn = occupied & ~absorbing
+    gauss = drawn & (counts >= 8.0)
+    table = drawn & (counts < 8.0)
+    lam = np.where(table, counts, 0.0)
+    n_iter = np.minimum(32, np.ceil(lam + 5.0 * np.sqrt(lam) + 4.0)) * table
+    per_boot = (drawn.sum() * OPS_PHILOX + gauss.sum() * OPS_GAUSS
+                + table.sum() * OPS_TABLE_FIXED + n_iter.sum() * OPS_TABLE_STEP
+                + occupied.sum() * (OPS_PER_WEIGHT * w_dim + 1))
+    bins = {"drawn_bins": int(drawn.sum()), "gauss_bins": int(gauss.sum()),
+            "table_bins": int(table.sum())}
+    return float(per_boot) * num_boot, bins
+
+
+def _redesign(counts: np.ndarray, w_dim: int, num_boot: int):
+    """Operations of the redesigned kernel on these inputs, with one Philox
+    call per group of four bins and branch, and its Philox calls per
+    replicate."""
+    t_dim, u_dim = counts.shape
+    c = np.pad(counts, ((0, 0), (0, (-u_dim) % 4)))
+    ctail = np.cumsum(c[:, ::-1], axis=1)[:, ::-1]
+    occupied = c > 0
+    drawn = occupied & ~(c >= ctail)
+    gauss = (drawn & (c >= 8.0)).reshape(t_dim, -1, 4)
+    table = (drawn & (c < 8.0)).reshape(t_dim, -1, 4)
+    per_boot = (table.any(2).sum() * OPS_PHILOX_CALL
+                + gauss.any(2).sum() * (OPS_PHILOX_CALL + OPS_NORMALS)
+                + table.sum() * OPS_TABLE_DRAW + gauss.sum() * OPS_GAUSS_DRAW
+                + occupied.sum() * (OPS_PER_WEIGHT * w_dim + 1))
+    philox_calls = int(table.any(2).sum() + gauss.any(2).sum())
+    return float(per_boot) * num_boot, philox_calls
+
+
+def cascade_tile_cost(counts: np.ndarray, num_boot: int, w_dim: int) -> dict:
+    """The work of one launch of the cascade kernel on a tile.
+
+    Args:
+      counts: ``[T, U]`` bin multiplicities as the kernel receives them
+        (zeros = ragged-U padding), in their own dtype: the kernel's
+        inputs are float32, and the counts are taken in it.
+      num_boot: replicates B.
+      w_dim: weight columns W.
+
+    Returns:
+      dict with ``hbm_bytes``, ``ops`` (the redesign's count),
+      ``ops_first_design``, ``useful_draws`` (occupied bins x B, as the
+      JAX package counts them), ``drawn_bins``, ``gauss_bins``,
+      ``table_bins`` and ``philox_calls_per_replicate``.
+    """
+    counts = np.asarray(counts)
+    t_dim, u_dim = counts.shape
+    hbm_bytes = 4 * (counts.size * (1 + w_dim) + t_dim
+                     + t_dim * w_dim * num_boot)
+    ops_first, bins = _first_design(counts, w_dim, num_boot)
+    ops, philox_calls = _redesign(counts, w_dim, num_boot)
+    return {
+        "hbm_bytes": float(hbm_bytes),
+        "ops": ops,
+        "ops_first_design": ops_first,
+        "useful_draws": float((counts > 0).sum()) * num_boot,
+        **bins,
+        "philox_calls_per_replicate": philox_calls,
+    }
+
+
+def roofline(counts: np.ndarray, num_boot: int, measured_s: float,
+             w_dim: int, fp32_ops_per_s: float = PEAK_FP32_S,
+             hbm_bytes_per_s: float = PEAK_BYTES_S) -> dict:
+    """Roofline verdict for one measured launch on ``counts``: the work,
+    its compute and memory bounds, the utilisation of each peak and the
+    limiting resource (``"fp32"`` on a tie)."""
+    cost = cascade_tile_cost(counts, num_boot, w_dim)
+    t_compute = cost["ops"] / fp32_ops_per_s
+    t_memory = cost["hbm_bytes"] / hbm_bytes_per_s
+    bound = max(t_compute, t_memory)
+    return {
+        **cost,
+        "measured_s": float(measured_s),
+        "useful_draws_per_s": cost["useful_draws"] / measured_s,
+        "t_compute_bound_s": t_compute,
+        "t_compute_bound_first_design_s":
+            cost["ops_first_design"] / fp32_ops_per_s,
+        "t_memory_bound_s": t_memory,
+        "bound_s": bound,
+        "fp32_utilization": t_compute / measured_s,
+        "hbm_utilization": t_memory / measured_s,
+        "limiting_resource": "fp32" if t_compute >= t_memory else "hbm",
+        "speed_of_light_gap": measured_s / max(bound, 1e-12),
+    }
+
+
+__all__ = ["cascade_tile_cost", "roofline", "PEAK_BYTES_S", "PEAK_FP32_S"]

@@ -354,6 +354,21 @@ ISOLATED = textwrap.dedent("""
     mtt.ht_1d_moments(cust, treatment=tx, **kw)
     assert bootstrap.CUSTOM_PATHS["device"] == len(groups)
     assert np.isfinite(mtt.get_1d_ht_result(cust)["de_coef"]).all()
+
+    # the observability layer: the profiler, the phase readers, the cost
+    # model
+    import torch
+    from memento_tpu_torch.utils import profiling, roofline
+    with tempfile.TemporaryDirectory() as logdir:
+        with profiling.device_trace(logdir, device="cpu") as prof:
+            with profiling.phase("isolated.phase"):
+                total = profiling.sync_pull({"x": [torch.ones(3)]})
+        assert total == 3.0 and prof is not None
+        assert os.path.exists(os.path.join(logdir, profiling.TRACE_FILE))
+    assert "isolated.phase" in profiling.report()
+    assert profiling.steady_state(1.0, "ht1d", 10)["steady_s"] > 0
+    roof = roofline.roofline(np.full((8, 12), 3.0, np.float32), 16, 1e-3, 2)
+    assert roof["limiting_resource"] in ("fp32", "hbm")
     loaded = [m for m in sys.modules if sys.modules[m] is not None
               and m.split(".")[0] in ("jax", "jaxlib", "memento_tpu",
                                       "pandas")]
