@@ -77,7 +77,21 @@ Phases, one line each:
       each bit for bit (c)'s or (e)'s result with one cascade launch; per
       path the traced window, the device busy share, the top device
       operations and the longest idle gaps with the phases that overlap
-      them (``trace_summary``); then one launch closed by ``sync_pull``.
+      them (``trace_summary``); then one launch closed by ``sync_pull``;
+  (k) the north-star scale of the scale drivers (``memento_tpu_torch/
+      drivers/``), through the drivers' own functions, on one matrix of
+      200,000 cells x 20,000 genes (``north_star_simulate``'s law, drawn on
+      the card by ``_data.north_star_device``): (k1) the 1D test on every
+      gene, two conditions split by cell index (a null design), B = 10,000
+      (19 tiles); (k2) the 2D test on 10,000 pairs among the 4,000 most
+      expressed genes, B = 1,000 (5 tiles); (k3) ``get_corr_matrix`` of one
+      group (100,000 cells x 20,000 genes), 2,000 random entries held
+      against the host float64 pair path; (k4) the eQTL shape, 10,240 genes
+      with 1 to 8 SNP columns each, B = 5,000, tiles of 1,024.  Each line
+      gives the seconds per stage, ``steady_state``, the peak device memory,
+      the host RSS, the cascade launches (one a tile) and the card; the
+      null gates hold the p-values.  (b) then checks the kernel on the first
+      tile of (k1) (W = 2) and of (k2) (W = 5).
 
 Then one JSON line of kernels, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -1243,6 +1257,209 @@ def traced_paths(mtt, adata, dev, base, base2, tile_1d, seed):
     return out
 
 
+# Phase (k): the scale drivers' north-star configurations
+NS_CELLS = 200_000
+NS_GENES = 20_000
+NS_BOOT_1D = 10_000
+NS_PAIRS = 10_000
+NS_BOOT_2D = 1_000
+EQTL_GENES = 10_240
+EQTL_BOOT = 5_000
+EQTL_KT = 8
+EQTL_TILE = 1024
+EQTL_MIN_TESTS = 45_000  # (k4)'s real (not padded) gene-SNP tests
+CORR_ENTRIES = 2000  # (k3)'s entries held against the pair path
+
+
+def null_gates(label, calib, finite_min=0.99):
+    """A null design's p-values: finite share, median in [0.3, 0.7] and the
+    share below 0.05 at most 0.10 (``_report.null_calibration``)."""
+    require(calib["finite_pval_frac"] >= finite_min,
+            f"{label}: finite p-value share {calib['finite_pval_frac']}")
+    if "null_median_pval" in calib:
+        require(0.3 <= calib["null_median_pval"] <= 0.7,
+                f"{label}: null median p {calib['null_median_pval']}")
+        require(calib["null_fp_share_005"] <= 0.10,
+                f"{label}: null FP share {calib['null_fp_share_005']}")
+
+
+def north_star_scale(mtt, dev, card, seed):
+    """Phase (k): the drivers' north-star paths on one matrix drawn on the
+    card.  Logs one line a sub-phase and returns ``(launches by path, the
+    kernel inputs of (k1)'s and (k2)'s first tiles)``."""
+    import torch
+
+    from memento_tpu_torch.drivers import (_data, _report, eqtl_north_star,
+                                           north_star, north_star_2d)
+    from memento_tpu_torch.inference.ht import (MAX_PAIR_TILE, _round_up,
+                                                default_tile_size)
+    from memento_tpu_torch.ops.corr import cov_sparse_pairs
+    from memento_tpu_torch.ops.estimators import HYPER_RELATIVE
+    from memento_tpu_torch.utils import profiling
+
+    def resources():
+        return _report.resources(dev, with_card=False)
+
+    def phase_table():
+        return {name: round(v["total_s"], 3)
+                for name, v in profiling.timings().items()}
+
+    t0 = time.perf_counter()
+    X = _data.north_star_device(NS_CELLS, NS_GENES, seed=seed, device=dev)
+    torch.cuda.empty_cache()
+    log(f"(k) data: {NS_CELLS} cells x {NS_GENES} genes drawn on the card "
+        f"(north_star_simulate's law, chunks of 10,000 cells) in "
+        f"{time.perf_counter() - t0:.1f} s | nnz {X.nnz} (density "
+        f"{X.nnz / NS_CELLS / NS_GENES:.4f}) | host RSS "
+        f"{_report.host_rss_bytes() / 2**30:.2f} GiB | {card}")
+    launches, tiles = {}, {}
+
+    # (k1) the 1D test on every gene, B = 10,000
+    phases = {}
+    _report.reset(dev)
+    adata = north_star.prepare(X, phases)
+    del X
+    result, steady = north_star.run_1d(adata, NS_BOOT_1D, None, dev, phases,
+                                       verbose=0)
+    info = resources()
+    ht_phases = phase_table()
+    rec = north_star.record({"genes": NS_GENES, "num_boot": NS_BOOT_1D,
+                             "tile": None}, adata, result, steady, phases)
+    tile_1d = default_tile_size(2, NS_BOOT_1D)
+    n_tiles = -(-NS_GENES // tile_1d)
+    require(rec["config"]["genes_tested"] == NS_GENES,
+            f"(k1) tested {rec['config']['genes_tested']} genes")
+    null_gates("(k1) de_pval", rec)
+    require(rec["dv_finite_pval_frac"] >= 0.99,
+            f"(k1) dv finite share {rec['dv_finite_pval_frac']}")
+    require(info["cascade_launches"] == n_tiles,
+            f"(k1) {info['cascade_launches']} launches, {n_tiles} tiles")
+    launches["k1"] = info["cascade_launches"]
+    log(f"(k1) north_star: {NS_GENES} genes x {NS_CELLS} cells, B = "
+        f"{NS_BOOT_1D}, {n_tiles} tiles of {tile_1d} | {json.dumps(rec)} | "
+        f"ht1d phases {json.dumps(ht_phases)} | {json.dumps(info)} | {card}")
+    tiles["1d_ns"] = tuple(torch.as_tensor(a, device=dev) for a in
+                           main_path_tile(adata, HYPER_RELATIVE, tile_1d))
+
+    # (k2) the 2D test on 10,000 pairs, B = 1,000, on (k1)'s state
+    phases = {}
+    _report.reset(dev)
+    result2, steady2 = north_star_2d.run_2d(adata, NS_PAIRS, NS_BOOT_2D, None,
+                                            dev, phases, verbose=0)
+    info = resources()
+    ht_phases = phase_table()
+    rec = north_star_2d.record({"genes": NS_GENES, "pairs": NS_PAIRS,
+                                "num_boot": NS_BOOT_2D, "tile": None},
+                               adata, result2, steady2, phases)
+    uns = adata.uns["memento"]["2d_moments"]
+    idx1, idx2 = uns["gene_idx_1"], uns["gene_idx_2"]
+    n_tested = len(result2)
+    tile_2d = min(default_tile_size(2, NS_BOOT_2D), MAX_PAIR_TILE,
+                  _round_up(n_tested, 64))
+    n_tiles = -(-n_tested // tile_2d)
+    require(n_tested >= 0.99 * NS_PAIRS, f"(k2) tested {n_tested} pairs")
+    null_gates("(k2) corr_pval", rec)
+    require(info["cascade_launches"] == n_tiles,
+            f"(k2) {info['cascade_launches']} launches, {n_tiles} tiles")
+    launches["k2"] = info["cascade_launches"]
+    log(f"(k2) north_star_2d: {n_tested} pairs ({NS_PAIRS} drawn) among "
+        f"the 4,000 most expressed genes, B = {NS_BOOT_2D}, {n_tiles} tiles "
+        f"of {tile_2d} | {json.dumps(rec)} | ht2d phases "
+        f"{json.dumps(ht_phases)} | {json.dumps(info)} | {card}")
+    tiles["2d_ns"] = main_path_tile_2d(adata, HYPER_RELATIVE, idx1, idx2, dev,
+                                       tile_2d)
+
+    # (k3) get_corr_matrix of one group
+    group = adata.uns["memento"]["groups"][0]
+    cells = adata.uns["memento"]["group_cells"][group]
+    var = adata.uns["memento"]["1d_moments"][group][1]
+    _report.reset(dev)
+    profiling.reset_timings()
+    t0 = time.perf_counter()
+    mat = mtt.get_corr_matrix(adata, group, device=dev)
+    corr_s = time.perf_counter() - t0
+    info = resources()
+    corr_phases = phase_table()
+    live = var > 0
+    require(mat.shape == (NS_GENES, NS_GENES), f"(k3) shape {mat.shape}")
+    uns = adata.uns["memento"]
+    rng = np.random.default_rng(seed + 23)
+
+    def pair_path(i1, i2):
+        """Host float64 covariances of the pairs over their variances."""
+        cov = cov_sparse_pairs(cells, uns["size_factor"][group],
+                               uns["group_q"][group], i1, i2, HYPER_RELATIVE)
+        return cov / np.sqrt(var[i1] * var[i2])
+
+    # the rows and columns of genes with no variance are NaN; off them an
+    # entry is NaN only where the correlation leaves [-1.05, 1.05] (the
+    # reference's rule), which the pair path must confirm
+    require(np.isnan(mat[~live]).all() and np.isnan(mat[:, ~live]).all(),
+            "(k3) a gene with no variance has a finite entry")
+    bad = ~np.isfinite(mat)
+    bad[~live] = False
+    bad[:, ~live] = False
+    off = np.argwhere(bad)
+    del bad
+    if len(off):
+        some = off[rng.choice(len(off), min(len(off), CORR_ENTRIES),
+                              replace=False)]
+        raw = np.abs(pair_path(some[:, 0], some[:, 1]))
+        require((raw > 1.05 - 1e-3).all(), "(k3) NaN entries off the NaN "
+                f"genes where the pair path gives |corr| {raw.min():.4g}")
+    pick = rng.choice(np.nonzero(live)[0], (2 * CORR_ENTRIES, 2))
+    i1, i2 = pick[pick[:, 0] != pick[:, 1]][:CORR_ENTRIES].T
+    pair_corr = mtt.api._corr_from_cov_np(
+        pair_path(i1, i2) * np.sqrt(var[i1] * var[i2]), var[i1], var[i2])
+    inside = np.isfinite(mat[i1, i2])
+    corr_err = float(np.abs(mat[i1, i2][inside] - pair_corr[inside]).max())
+    require(corr_err <= 1e-3 and inside.mean() >= 0.99,
+            f"(k3) max |diff| against the pair path {corr_err}, finite "
+            f"share of the entries {inside.mean()}")
+    finite_live = 1.0 - len(off) / float(live.sum()) ** 2
+    log(f"(k3) get_corr_matrix: group {group} [{cells.shape[0]} cells x "
+        f"{NS_GENES} genes] in {corr_s:.3f} s | phases "
+        f"{json.dumps(corr_phases)} | finite share off the "
+        f"{int((~live).sum())} genes with no variance: {finite_live} ("
+        f"{len(off)} entries out of [-1.05, 1.05] by the pair path too) | "
+        f"{len(i1)} random entries against the host float64 pair path: max "
+        f"|diff| {corr_err:.3g} (limit 1e-3) "
+        f"| mean |offdiag| {float(np.nanmean(np.abs(mat[i1, i2]))):.4g} | "
+        f"{json.dumps(info)} | {card}")
+    del mat
+
+    # (k4) the eQTL shape on the first 10,240 genes
+    Xe = adata.X[:, :EQTL_GENES].tocsr()
+    del adata, cells
+    t0 = time.perf_counter()
+    state = eqtl_north_star.prepare(Xe)
+    prep_s = time.perf_counter() - t0
+    nt, treatment = _data.eqtl_design(EQTL_GENES, EQTL_KT)
+    _report.reset(dev)
+    res, wall = eqtl_north_star.run_eqtl(state, treatment, EQTL_BOOT,
+                                         EQTL_TILE, dev, verbose=False)
+    info = resources()
+    ht_phases = phase_table()
+    rec = eqtl_north_star.record(
+        {"kt": EQTL_KT, "num_boot": EQTL_BOOT, "tile": EQTL_TILE},
+        Xe.shape[0], nt, res, wall)
+    n_tiles = -(-EQTL_GENES // EQTL_TILE)
+    require(rec["config"]["tests"] >= EQTL_MIN_TESTS,
+            f"(k4) {rec['config']['tests']} tests")
+    null_gates("(k4) mean_pval", {"finite_pval_frac":
+                                  rec["finite_pval_frac"]})
+    require(info["cascade_launches"] == n_tiles,
+            f"(k4) {info['cascade_launches']} launches, {n_tiles} tiles")
+    launches["k4"] = info["cascade_launches"]
+    log(f"(k4) eqtl_north_star: {EQTL_GENES} genes, {rec['config']['tests']} "
+        f"gene-SNP tests (Kt <= {EQTL_KT}), B = {EQTL_BOOT}, {n_tiles} tiles "
+        f"of {EQTL_TILE} | prepare {prep_s:.3f} s | {json.dumps(rec)} | "
+        f"ht1d phases {json.dumps(ht_phases)} | {json.dumps(info)} | {card}")
+    del state, res, Xe
+    torch.cuda.empty_cache()
+    return launches, tiles
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1494,6 +1711,12 @@ def main() -> int:
         f"1D result bit for bit equal to (i1)'s run without a mesh | "
         f"phase (i) {time.perf_counter() - t_i:.1f} s | {card}")
 
+    # ---- (k) the north-star scale --------------------------------------------
+    t_k = time.perf_counter()
+    launches_k, tiles_k = north_star_scale(mtt, dev, card, args.seed)
+    log(f"(k) phase (k) {time.perf_counter() - t_k:.1f} s | launches "
+        f"{json.dumps(launches_k)}")
+
     # ---- (b) kernel against its plain version on each main path's tile ----
     # each main path's tile, and the first tile of each path's tiling in (i)
     def tile_1d(tile=None):
@@ -1506,6 +1729,7 @@ def main() -> int:
         "1d_tile240": tile_1d(TILE_1D_I),
         "2d_tile128": main_path_tile_2d(adata, HYPER_RELATIVE, idx1, idx2, dev,
                                         TILE_2D_I),
+        **tiles_k,
     }
     if int((tiles["1d"][0] > 0).sum(1).max()) <= 256:
         raise AssertionError("no 1D row with U > 256")
@@ -1514,14 +1738,16 @@ def main() -> int:
             ("1d", 2, (1, 2), "1D main path tile"),
             ("2d", 5, (5,), "2D main path tile"),
             ("1d_tile240", 2, (2,), f"first 1D tile of {TILE_1D_I} in (i)"),
-            ("2d_tile128", 5, (5,), f"first 2D tile of {TILE_2D_I} in (i)")):
+            ("2d_tile128", 5, (5,), f"first 2D tile of {TILE_2D_I} in (i)"),
+            ("1d_ns", 2, (2,), "first 1D tile of (k1), B = 10000 path"),
+            ("2d_ns", 5, (5,), "first 2D tile of (k2)")):
         counts, weights, _ = tiles[key]
         t_dim, u_dim = counts.shape
         occupied = (counts > 0).sum(1)
         small_bins = float(((counts > 0) & (counts < 8)).sum()
                            / occupied.sum())
         shapes[key] = {"rows": t_dim, "bins": u_dim, "W": tile_w,
-                       "B": NUM_BOOT}
+                       "B": NS_BOOT_1D if key == "1d_ns" else NUM_BOOT}
         # the plain version holds a [rows, bins, 32] float32 table; take
         # every k-th row if that would pass 8 GiB
         step = -(-(t_dim * u_dim * 32 * 4) // (8 << 30))
@@ -1696,15 +1922,21 @@ def main() -> int:
         "source": "memento_tpu_torch/csrc/cascade_bootstrap.cu",
         "replaces": "memento_tpu/ops/pallas_kernels.py:53",
         **numbers("1d", 2, launches_1d["cascade_bootstrap"]
-                  + launches_2d["cascade_bootstrap"]),
+                  + launches_2d["cascade_bootstrap"]
+                  + sum(launches_k.values())),
         "launches_by_path": {"1d": launches_1d["cascade_bootstrap"],
                              "2d": launches_2d["cascade_bootstrap"],
-                             **launches_i},
-        "W5": numbers("2d", 5, launches_2d["cascade_bootstrap"]),
+                             **launches_i, **launches_k},
+        "W5": numbers("2d", 5, launches_2d["cascade_bootstrap"]
+                      + launches_k["k2"]),
         "phase_i_tiles": {key: {"shape": shapes[key],
                                 "max_abs_err": max_err[key],
                                 "same_seed": same_seed[key]}
                           for key in ("1d_tile240", "2d_tile128")},
+        "phase_k_tiles": {key: {"shape": shapes[key],
+                                "max_abs_err": max_err[key],
+                                "same_seed": same_seed[key]}
+                          for key in ("1d_ns", "2d_ns")},
     }
     print(json.dumps({"kernels": [kernel]}))
     print(card)

@@ -349,11 +349,19 @@ def compute_1d_moments(adata, inplace=True, min_perc_group=0.7,
         return adata
 
 
+# Rows of the Gram matrix finished at a time on the host by
+# ``get_corr_matrix`` (the mesh path's default too).  Finished whole, a
+# 20,000-gene matrix held 33 GiB of host memory for its 3.2 GB of float64
+# output (``chip_smoke.py`` phase (k3)); in slices the temporaries are those
+# of one slice.
+CORR_ROW_BLOCK = 4096
+
+
 def get_corr_matrix(adata, group, mesh=None, device=None):
     """All-by-all ``[G, G]`` correlation matrix of one group, as blocked
     float32 matrix products on ``device`` (default ``cuda``) finished in
-    host float64; with ``mesh`` (a tuple of devices) the Gram matrix's
-    columns are split over its devices
+    host float64 in slices of ``CORR_ROW_BLOCK`` rows; with ``mesh`` (a
+    tuple of devices) the Gram matrix's columns are split over its devices
     (``parallel.sharded.corr_matrix_sharded``)."""
     uns = adata.uns["memento"]
     model = est.get_noise_model(uns["estimator_type"])
@@ -365,8 +373,8 @@ def get_corr_matrix(adata, group, mesh=None, device=None):
     if mesh is not None:
         from .parallel.sharded import corr_matrix_sharded
 
-        return corr_matrix_sharded(mesh, *args)
-    return corr_matrix_device(*args, device=device)
+        return corr_matrix_sharded(mesh, *args, row_block=CORR_ROW_BLOCK)
+    return corr_matrix_device(*args, row_block=CORR_ROW_BLOCK, device=device)
 
 
 def _corr_from_cov_np(cov, var_1, var_2):

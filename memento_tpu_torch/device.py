@@ -12,9 +12,16 @@ splitmix64, the role ``jax.random.fold_in`` plays in the JAX package
 always gives the same stream, whichever tile, thread or device runs it.  The
 derived 64-bit value seeds a ``torch.Generator`` for the plain tensor paths
 and is the Philox key of the CUDA kernel.
+
+``warming()`` marks the work of the current thread as a first-use warm-up
+(``inference/ht.py::_run_tiles``), so that the counters which show what a
+run went through (kernel launches, user-estimator paths) file it apart.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -53,4 +60,24 @@ def generator(seed: int, device) -> torch.Generator:
     return gen
 
 
-__all__ = ["resolve_device", "fold_seed", "generator"]
+_LOCAL = threading.local()
+
+
+@contextlib.contextmanager
+def warming():
+    """Mark this thread's work inside the block as a warm-up run."""
+    before = is_warming()
+    _LOCAL.warming = True
+    try:
+        yield
+    finally:
+        _LOCAL.warming = before
+
+
+def is_warming() -> bool:
+    """Whether this thread is inside ``warming()``."""
+    return getattr(_LOCAL, "warming", False)
+
+
+__all__ = ["resolve_device", "fold_seed", "generator", "warming",
+           "is_warming"]

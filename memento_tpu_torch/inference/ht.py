@@ -32,13 +32,14 @@ Device math is float32, as on the JAX device path; host stages are float64.
 from __future__ import annotations
 
 import contextlib
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..device import fold_seed, generator, resolve_device
+from ..device import fold_seed, generator, resolve_device, warming
 from ..ops.bootstrap import (SAMPLERS, bootstrap_1d, bootstrap_1d_custom,
                              bootstrap_2d, bootstrap_2d_custom)
 from ..ops.estimators import NoiseModel, corr_from_cov
@@ -433,13 +434,21 @@ class _DeferredGEV:
         self._futs = []
         self._phase = phase_name
 
+    def preload(self) -> None:
+        """Start the refit's imports on the worker (the first import of
+        ``scipy.stats`` takes seconds), so that they overlap the first
+        tiles instead of holding up the tile loop."""
+        def load():
+            with profiling.phase(self._phase + ".import"):
+                from . import gev  # noqa: F401
+
+        self._futs.append(self._pool.submit(load))
+
     def submit(self, rows_dev, gi: np.ndarray, gk: np.ndarray,
                out_pval: np.ndarray, resampling: str) -> None:
-        # the first call imports scipy.stats, which takes seconds
-        with profiling.phase(self._phase + ".import"):
+        def work():
             from .gev import gev_refine_batch
 
-        def work():
             with profiling.phase(self._phase):
                 rows = rows_dev.cpu().numpy().astype(np.float64)
                 stats = rows[:, 0]
@@ -538,6 +547,44 @@ def _one_sample_flags(treatment: np.ndarray, per_item: bool) -> bool:
 # its [T, Kt, B+1] float32 coefficient tensors on the device.
 DEFAULT_MAX_PENDING = 3
 
+# Rows of the warm-up tile (see ``_warm_up``).
+WARM_ROWS = 8
+# (thread, device, run options) already warmed in this process.
+_WARMED = set()
+_WARMED_LOCK = threading.Lock()
+
+
+def _warm_up(label: str, key, n_items: int, pack: Callable, launch: Callable,
+             dev: torch.device) -> None:
+    """Run the tile program once on a tile of ``WARM_ROWS`` rows, on the
+    calling thread, and throw its results away.
+
+    The first tile program of a process pays for first use: the CUDA
+    context, the kernel library's loading (and build), lazily loaded device
+    modules and the cuBLAS / cuSOLVER handles of the meta-regression's
+    solve, which PyTorch keeps per thread.  The thread that will dispatch
+    the tiles pays it here, on a tile of the run's first rows packed with
+    the run's own options, while the prefetch thread packs the first real
+    tile.  It runs once per thread, device and ``key`` (the run's options).
+    Its kernel launches count in ``cuda_kernels.WARM_LAUNCHES``
+    (``device.warming()``); a failure raises, as the real dispatch would.
+    """
+    marker = (threading.get_ident(), str(dev), label, key)
+    with _WARMED_LOCK:
+        if marker in _WARMED:
+            return
+    try:
+        with profiling.phase(f"{label}.warm", device=dev), warming(), _on(dev):
+            host_args, static = pack(0, min(WARM_ROWS, n_items), WARM_ROWS)
+            tile_args = tuple(torch.as_tensor(np.ascontiguousarray(a),
+                                              device=dev) for a in host_args)
+            launch(0, tile_args, static, dev)
+    except Exception as exc:
+        raise RuntimeError(f"{label}: the first-use warm-up on {dev} "
+                           "failed") from exc
+    with _WARMED_LOCK:
+        _WARMED.add(marker)
+
 
 def _resolve_sampler(sampler: str, device: torch.device) -> str:
     """``'auto'`` -> the CUDA kernel on a CUDA device, the plain cascade on
@@ -629,20 +676,23 @@ def _treatment_tile(treatment: np.ndarray, start: int, stop: int, t: int):
 def _run_tiles(label: str, unit: str, stats: Sequence[str], n_items: int,
                tile_size: int, kt: int, pack: Callable, launch: Callable, *,
                devices, nproc: int, resampling: str, approx: bool,
-               max_pending: int, verbose: bool, note: str):
+               max_pending: int, verbose: bool, note: str, warm_key):
     """The tile loop of both tests.
 
-    ``pack(start, stop)`` builds one tile's host inputs (a tuple of numpy
-    arrays and a dict of static options) on the prefetch thread, so tile
-    t+1 is compressed while the device runs tile t.  ``launch(start, args,
-    static, dev)`` runs the tile's device program on the arrays transferred
-    to ``dev`` and returns its result dict.  The tiles go round-robin to
-    ``devices``; with ``nproc`` > 1 this process runs only its share
-    (``process_tile_starts``) and the rows merge across the processes at the
-    end.  Results are harvested at most ``max_pending`` tiles behind the
-    launches; flagged p-value tails go to the GEV worker.  Phases are timed
-    as ``<label>.*`` (they wait for the device only when the tiles have one
-    device, so that several devices run at once).
+    ``pack(start, stop, rows)`` builds the host inputs of the items
+    ``start:stop`` padded to ``rows`` (a tuple of numpy arrays and a dict of
+    static options) on the prefetch thread, so tile t+1 is compressed while
+    the device runs tile t.  ``launch(start, args, static, dev)`` runs the
+    tile's device program on the arrays transferred to ``dev`` and returns
+    its result dict.  While the first tile is packed, this thread warms each
+    device with the same program on a small tile (``_warm_up``, once per
+    ``warm_key``) and the GEV worker starts its imports.  The tiles go
+    round-robin to ``devices``; with ``nproc`` > 1 this process runs only
+    its share (``process_tile_starts``) and the rows merge across the
+    processes at the end.  Results are harvested at most ``max_pending``
+    tiles behind the launches; flagged p-value tails go to the GEV worker.
+    Phases are timed as ``<label>.*`` (they wait for the device only when
+    the tiles have one device, so that several devices run at once).
 
     Returns ``{<stat>_coef, <stat>_se, <stat>_pval}`` ``[n_items, Kt]``
     float64 arrays for each name in ``stats``.
@@ -689,13 +739,18 @@ def _run_tiles(label: str, unit: str, stats: Sequence[str], n_items: int,
 
     def _pack(start):
         with profiling.phase(f"{label}.compress+pack"):
-            return pack(start, min(start + tile_size, n_items))
+            return pack(start, min(start + tile_size, n_items), tile_size)
 
     pending = []
     # one prefetch thread: tile t+1 compresses while tile t runs
     prefetch = ThreadPoolExecutor(1, thread_name_prefix=f"{label}-pack")
     try:
         fut = prefetch.submit(_pack, starts[0]) if starts else None
+        if starts:
+            if not approx:
+                gev_worker.preload()
+            for dev in dict.fromkeys(devices):
+                _warm_up(label, warm_key, n_items, pack, launch, dev)
         for i, start in enumerate(starts):
             host_args, static = fut.result()
             fut = (prefetch.submit(_pack, starts[i + 1])
@@ -796,12 +851,11 @@ def run_ht_1d(
 
     if tile_size is None:
         tile_size = min(default_tile_size(r, num_boot), _round_up(g, 64))
-    t = tile_size
 
     vdtype = _value_dtype(_global_value_max(compressed, groups))
     cdtype = _count_dtype(_max_combo_count(compressed, approx_sf))
 
-    def pack(start, stop):
+    def pack(start, stop, t):
         sl = slice(start, stop)
         if compressed is not None:
             u = u_fixed
@@ -849,7 +903,11 @@ def run_ht_1d(
         devices=devices, nproc=nproc, resampling=resampling, approx=approx,
         max_pending=max_pending, verbose=verbose,
         note=f"{g} genes in tiles of {tile_size} on {_names(devices)} "
-             f"(sampler {_names(samplers.values())}, {nproc} processes)")
+             f"(sampler {_names(samplers.values())}, {nproc} processes)",
+        warm_key=(tuple(samplers.items()), num_boot, r, kt,
+                  np.shape(covariate)[-1], one_sample, per_gene_treatment,
+                  resampling, approx, resample_rep, min(boot_chunk, num_boot),
+                  id(custom_1d)))
 
 
 def run_ht_2d(
@@ -917,14 +975,13 @@ def run_ht_2d(
     if tile_size is None:
         tile_size = min(default_tile_size(r, num_boot), MAX_PAIR_TILE,
                         _round_up(p, 64))
-    t = tile_size
 
     vdtype = _value_dtype(_global_value_max(compressed_pairs, groups,
                                             ("values_1", "values_2")))
     # the zero-zero combo of a bin can hold the bin's whole population
     cdtype = _count_dtype(_max_combo_count(compressed_pairs, approx_sf))
 
-    def pack(start, stop):
+    def pack(start, stop, t):
         sl = slice(start, stop)
         if compressed_pairs is not None:
             u = u_fixed
@@ -968,7 +1025,11 @@ def run_ht_2d(
         devices=devices, nproc=nproc, resampling=resampling, approx=approx,
         max_pending=max_pending, verbose=verbose,
         note=f"{p} pairs in tiles of {tile_size} on {_names(devices)} "
-             f"(sampler {_names(samplers.values())}, {nproc} processes)")
+             f"(sampler {_names(samplers.values())}, {nproc} processes)",
+        warm_key=(tuple(samplers.items()), num_boot, r, kt,
+                  np.shape(covariate)[-1], one_sample, per_pair_treatment,
+                  resampling, approx, resample_rep, min(boot_chunk, num_boot),
+                  id(custom_est)))
 
 
 __all__ = ["fill_invalid", "ht_1d_tile", "ht_2d_tile", "run_ht_1d",

@@ -20,7 +20,8 @@ materialized draws.  An estimator that, called on small tensors on the run's
 device, returns tensors on that device runs batched over the tile with
 ``torch.func.vmap``; any other (a numpy-only estimator written for the
 reference) runs item by item on host numpy copies, as the JAX package's
-``pure_callback`` path does.  ``CUSTOM_PATHS`` counts which path ran.
+``pure_callback`` path does.  ``CUSTOM_PATHS`` counts which path ran (not
+in the tile loop's warm-up, ``device.warming()``).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import threading
 import numpy as np
 import torch
 
-from ..device import generator
+from ..device import generator, is_warming
 from .cuda_kernels import fused_bootstrap_sums_cuda
 from .estimators import NoiseModel, cov_compressed, mean_var_compressed
 from .sampling import bootstrap_counts, fused_bootstrap_sums
@@ -49,6 +50,8 @@ def reset_custom_paths() -> None:
 
 
 def _count_path(name: str) -> None:
+    if is_warming():  # the tile loop's warm-up is not a run
+        return
     with _PATHS_LOCK:
         CUSTOM_PATHS[name] += 1
 

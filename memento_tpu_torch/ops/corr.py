@@ -12,7 +12,11 @@ Counterpart of ``memento_tpu/ops/corr.py``.  Two paths:
   float64.  The Gram product is a plain large matrix product
   (``torch.matmul``, as the JAX package leaves it to ``jnp.dot``), always in
   full float32: TF32 would keep three decimal digits of sums that are about
-  to be subtracted from each other.
+  to be subtracted from each other.  Its stages are timed as ``profiling``
+  phases: ``corr.densify`` (host blocks) and ``corr.upload`` (their copies)
+  inside ``corr.gram`` (the whole stream, synchronized at its end), then
+  ``corr.finish`` with ``corr.gather`` (the Gram rows' copies back) inside
+  it.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 
 from .. import native
 from ..device import resolve_device
+from ..utils import profiling
 from .estimators import NoiseModel
 from .estimators import full_float32_matmul as _full_float32_matmul
 from .transport import compact_transport_dtype
@@ -133,27 +138,36 @@ def corr_matrix_device(X, size_factor, q, var, model: NoiseModel,
     def to_dev(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype), device=dev)
 
-    with _full_float32_matmul():
+    with _full_float32_matmul(), profiling.phase("corr.gram", device=dev):
         for start in range(0, n, block):
             stop = min(start + block, n)
-            xb = Xc[start:stop]
-            xb = xb.toarray() if issp else xb
+            with profiling.phase("corr.densify"):
+                xb = Xc[start:stop]
+                xb = np.ascontiguousarray(xb.toarray() if issp else xb,
+                                          dtype=tdtype)
+            with profiling.phase("corr.upload"):
+                xb = to_dev(xb, tdtype)
+                inv_sf_b = to_dev(1.0 / sf[start:stop], np.float32)
+                inv_sf_sq_b = to_dev(1.0 / sf[start:stop] ** 2, np.float32)
             S, s1, sdiag, cS, cs1, csdiag = _gram_update(
-                to_dev(xb, tdtype),
-                to_dev(1.0 / sf[start:stop], np.float32),
-                to_dev(1.0 / sf[start:stop] ** 2, np.float32),
-                S, s1, sdiag, cS, cs1, csdiag)
+                xb, inv_sf_b, inv_sf_sq_b, S, s1, sdiag, cS, cs1, csdiag)
     c = float(np.asarray(model.var_correction(q)))
-    s1_h, sdiag_h = s1.cpu().numpy(), sdiag.cpu().numpy()
-    if row_block is None:
-        out = finish_corr_host(S.cpu().numpy(), s1_h, sdiag_h, var, n, c)
-        return out.astype(out_dtype) if out_dtype is not None else out
-    out = np.empty((g, g), dtype=out_dtype or np.float64)
-    for r0 in range(0, g, row_block):
-        r1 = min(r0 + row_block, g)
-        out[r0:r1] = finish_corr_rows(S[r0:r1].cpu().numpy(), r0, s1_h,
-                                      sdiag_h, var, n, c)
-    return out
+
+    def gather(rows=slice(None)):
+        with profiling.phase("corr.gather"):
+            return S[rows].cpu().numpy()
+
+    with profiling.phase("corr.finish"):
+        s1_h, sdiag_h = s1.cpu().numpy(), sdiag.cpu().numpy()
+        if row_block is None:
+            out = finish_corr_host(gather(), s1_h, sdiag_h, var, n, c)
+            return out.astype(out_dtype) if out_dtype is not None else out
+        out = np.empty((g, g), dtype=out_dtype or np.float64)
+        for r0 in range(0, g, row_block):
+            r1 = min(r0 + row_block, g)
+            out[r0:r1] = finish_corr_rows(gather(slice(r0, r1)), r0, s1_h,
+                                          sdiag_h, var, n, c)
+        return out
 
 
 def finish_corr_rows(S_rows, row_start, s1, sdiag, var, n, c):

@@ -7,7 +7,8 @@ _cascade_chunk_kernel``).  For a tensor on the CPU it runs the plain version,
 kernel or raises.  ``LAUNCHES`` counts kernel launches, so a run can show
 that its main path went through the kernel; ``LAUNCHES_BY_W`` splits the
 same count by the number of weights W (2 or 1 from the 1D test, 5 from the
-2D test).
+2D test).  Launches made inside ``device.warming()`` (the tile loop's
+first-use warm-up) count in ``WARM_LAUNCHES`` instead.
 
 What depends on the counts alone stays plain tensor operations here, as the
 JAX package computes them outside its Pallas call (``cascade_inputs``): the
@@ -23,17 +24,30 @@ import ctypes
 
 import torch
 
+from ..device import is_warming
 from . import kernel_build, sampling
 
 SUPPORTED_W = (1, 2, 5)
 LAUNCHES = {"cascade_bootstrap": 0}
 LAUNCHES_BY_W = {w: 0 for w in SUPPORTED_W}
+WARM_LAUNCHES = {"cascade_bootstrap": 0}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, LAUNCHES_BY_W):
+    for counts in (LAUNCHES, LAUNCHES_BY_W, WARM_LAUNCHES):
         for name in counts:
             counts[name] = 0
+
+
+def count_launch(w_dim: int) -> None:
+    """Count one launch of the cascade kernel with ``w_dim`` weights: in
+    ``WARM_LAUNCHES`` inside ``device.warming()``, else in ``LAUNCHES`` and
+    ``LAUNCHES_BY_W``."""
+    if is_warming():
+        WARM_LAUNCHES["cascade_bootstrap"] += 1
+        return
+    LAUNCHES["cascade_bootstrap"] += 1
+    LAUNCHES_BY_W[w_dim] += 1
 
 
 def _cascade_library():
@@ -106,8 +120,7 @@ def launch_cascade(counts, weights, n_rows, inputs, num_boot: int, seed: int):
                 num_boot, int(seed) & ((1 << 64) - 1), stream)
     if rc != 0:
         raise RuntimeError(f"cascade_bootstrap launch failed: cudaError {rc}")
-    LAUNCHES["cascade_bootstrap"] += 1
-    LAUNCHES_BY_W[w_dim] += 1
+    count_launch(w_dim)
     return out
 
 
@@ -153,4 +166,4 @@ def fused_bootstrap_sums_cuda(counts, weights, n_obs, num_boot: int,
 
 __all__ = ["fused_bootstrap_sums_cuda", "cascade_inputs", "launch_cascade",
            "cascade_resources", "cascade_ptxas", "LAUNCHES", "LAUNCHES_BY_W",
-           "reset_launches"]
+           "WARM_LAUNCHES", "reset_launches", "count_launch"]

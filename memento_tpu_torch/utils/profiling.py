@@ -85,12 +85,13 @@ def reset_timings() -> None:
 def steady_state(total_s: float, prefix: str, n_items: int) -> Dict[str, float]:
     """Throughput of a tiled test run without its one-off costs.
 
-    The one-off is what only the first tile pays: the first pack (the JAX
-    package's first AOT warm join, where one ran beside it), the first
-    ``{prefix}.gev.refine.import`` (the ``scipy.stats`` import, on the tile
-    loop's thread after the pack, so added), the first dispatch and the
-    largest harvest.  It comes off the wall time, and one tile's items come
-    off the numerator.  A single-tile run reports its plain throughput.
+    The one-off is what only the first tile pays: the first pack or the
+    warm-up that runs beside it, whichever is longer (the port's
+    ``{prefix}.warm``; the JAX package's first AOT warm join), the first
+    ``{prefix}.gev.refine.import`` (the ``scipy.stats`` import, which the
+    first refit waits for, so added), the first dispatch and the largest
+    harvest.  It comes off the wall time, and one tile's items come off the
+    numerator.  A single-tile run reports its plain throughput.
 
     Args:
       total_s: wall time of the test.
@@ -113,6 +114,7 @@ def steady_state(total_s: float, prefix: str, n_items: int) -> Dict[str, float]:
             "steady_items_per_s": round(n_items / max(total_s, 1e-9), 2),
         }
     oneoff = (max(get(prefix + ".warmjoin", "first_s"),
+                  get(prefix + ".warm", "first_s"),
                   get(prefix + ".compress+pack", "first_s"))
               + get(prefix + ".gev.refine.import", "first_s")
               + get(prefix + ".dispatch", "first_s")
