@@ -1,0 +1,13 @@
+"""``pack_wait_s.2d``: seconds per request of a traced run's window in
+the program's span ``ht2d.pack.wait``: the dispatching thread waiting for
+the prefetch thread's packed tile, the part of packing the request pays
+for."""
+
+PHASE = "ht2d.pack.wait"
+
+
+def read(run):
+    t = run.traced
+    if t is None or t.kind != "2d" or not t.n or PHASE not in t.phases:
+        return None
+    return t.phases[PHASE] / t.n

@@ -24,6 +24,10 @@ it, the correlation matrix split over it; the moments stay the native host
 pass) and ``distributed=True`` in a ``torch.distributed`` process group
 (``parallel/distributed.py``).  ``prepare_to_save`` makes
 ``uns['memento']`` serializable.
+
+Every public call is a request of ``utils/profiling``: a root span named
+after the function with a new request id, whose child spans
+(``<function>.<stage>``) cover its host stages one stretch of code each.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from .ops.corr import corr_matrix_device, cov_sparse_pairs
 from .ops.mv_regression import fit_mv_regressor
 from .ops.size_factor import bin_size_factor, estimate_size_factor
 from .parallel.mesh import as_mesh
+from .utils import profiling
 from .utils.blocks import run_blocks
 
 __all__ = [
@@ -127,6 +132,7 @@ def _table_values(table):
     return arr, list(range(arr.shape[1]))
 
 
+@profiling.traced
 def setup_memento(
     adata,
     q_column,
@@ -146,91 +152,103 @@ def setup_memento(
     (``parallel.streaming.stream_mean_var``, the same sums) took 2.1-2.4 s
     where the native pass took 0.026 s, on 200,000 x 1,024 cells with one
     H100 (``chip_smoke.py`` phase (i2))."""
-    if mesh is not None:
-        as_mesh(mesh)
-    if not inplace:
-        adata = adata.copy()
+    with profiling.phase("setup_memento.layout"):
+        if mesh is not None:
+            as_mesh(mesh)
+        if not inplace:
+            adata = adata.copy()
 
-    q_all = np.asarray(adata.obs[q_column], dtype=np.float64)
-    if not q_all.max() < 1:
-        raise ValueError(f"capture efficiencies in {q_column!r} must be < 1")
-    if not sparse.issparse(adata.X):
-        adata.X = sparse.csr_matrix(adata.X)
-    adata.X = adata.X.tocsr()
+        q_all = np.asarray(adata.obs[q_column], dtype=np.float64)
+        if not q_all.max() < 1:
+            raise ValueError(
+                f"capture efficiencies in {q_column!r} must be < 1")
+        if not sparse.issparse(adata.X):
+            adata.X = sparse.csr_matrix(adata.X)
+        adata.X = adata.X.tocsr()
 
-    uns = adata.uns["memento"] = {}
-    uns["q_column"] = q_column
-    uns["all_q"] = float(q_all.mean())
-    uns["estimator_type"] = estimator_type
-    uns["filter_mean_thresh"] = filter_mean_thresh
-    uns["num_bins"] = num_bins
+        uns = adata.uns["memento"] = {}
+        uns["q_column"] = q_column
+        uns["all_q"] = float(q_all.mean())
+        uns["estimator_type"] = estimator_type
+        uns["filter_mean_thresh"] = filter_mean_thresh
+        uns["num_bins"] = num_bins
 
     # naive total-count size factor, residual variance over all cells
-    naive_sf = estimate_size_factor(adata.X, estimator_type, total=True,
-                                    shrinkage=0.0)
-    all_m, all_v = est.mean_var_sparse(adata.X, naive_sf, uns["all_q"],
-                                       "hyper_relative")
-    obs_mean = _obs_mean(adata.X)
-    all_m = np.asarray(all_m).copy()
-    all_m[obs_mean < filter_mean_thresh] = 0  # mean filter
-    all_res_var = _residual_variance_np(all_m, all_v,
-                                        fit_mv_regressor(all_m, all_v))
+    with profiling.phase("setup_memento.size_factor"):
+        naive_sf = estimate_size_factor(adata.X, estimator_type, total=True,
+                                        shrinkage=0.0)
+    with profiling.phase("setup_memento.moments"):
+        all_m, all_v = est.mean_var_sparse(adata.X, naive_sf, uns["all_q"],
+                                           "hyper_relative")
+        obs_mean = _obs_mean(adata.X)
+    with profiling.phase("setup_memento.fit"):
+        all_m = np.asarray(all_m).copy()
+        all_m[obs_mean < filter_mean_thresh] = 0  # mean filter
+        all_res_var = _residual_variance_np(all_m, all_v,
+                                            fit_mv_regressor(all_m, all_v))
 
-    # least-variable genes for normalization; with no finite residual
-    # variance (degenerate tiny inputs) take every expressed gene
-    finite_rv = all_res_var[np.isfinite(all_res_var)]
-    if finite_rv.size:
-        rv_ulim = np.quantile(finite_rv, trim_percent)
-        all_res_var = np.where(np.isfinite(all_res_var), all_res_var, np.inf)
-        mask = all_res_var < rv_ulim
-    else:
-        mask = obs_mean > 0
-    if not mask.any():
-        mask = obs_mean > 0
-    uns["least_variable_genes"] = adata.var.index[mask].tolist()
+        # least-variable genes for normalization; with no finite residual
+        # variance (degenerate tiny inputs) take every expressed gene
+        finite_rv = all_res_var[np.isfinite(all_res_var)]
+        if finite_rv.size:
+            rv_ulim = np.quantile(finite_rv, trim_percent)
+            all_res_var = np.where(np.isfinite(all_res_var), all_res_var,
+                                   np.inf)
+            mask = all_res_var < rv_ulim
+        else:
+            mask = obs_mean > 0
+        if not mask.any():
+            mask = obs_mean > 0
+        uns["least_variable_genes"] = adata.var.index[mask].tolist()
 
     # masked + shrunk size factor; zero-total cells get the smallest factor
-    size_factor = estimate_size_factor(adata.X, estimator_type, mask=mask,
-                                       shrinkage=shrinkage)
-    if np.any(size_factor <= 0):
-        floor = size_factor[size_factor > 0].min() \
-            if (size_factor > 0).any() else 1.0
-        size_factor = np.where(size_factor > 0, size_factor, floor)
-    adata.obs["memento_size_factor"] = size_factor
+    with profiling.phase("setup_memento.size_factor"):
+        size_factor = estimate_size_factor(adata.X, estimator_type, mask=mask,
+                                           shrinkage=shrinkage)
+        if np.any(size_factor <= 0):
+            floor = size_factor[size_factor > 0].min() \
+                if (size_factor > 0).any() else 1.0
+            size_factor = np.where(size_factor > 0, size_factor, floor)
+        adata.obs["memento_size_factor"] = size_factor
 
-    uns["all_1d_moments"] = _observed_moments(
-        uns, adata.X, adata.shape[0], uns["all_q"], size_factor)
+    with profiling.phase("setup_memento.moments"):
+        uns["all_1d_moments"] = _observed_moments(
+            uns, adata.X, adata.shape[0], uns["all_q"], size_factor)
     if not inplace:
         return adata
 
 
+@profiling.traced
 def create_groups(adata, label_columns, label_delimiter="^", inplace=True):
     """Discrete cell groups from obs columns (``sg^<col1>^<col2>...``)."""
-    if not inplace:
-        adata = adata.copy()
+    with profiling.phase("create_groups.labels"):
+        if not inplace:
+            adata = adata.copy()
 
-    labels = np.full(adata.n_obs, "sg" + label_delimiter, dtype=object)
-    for idx, col in enumerate(label_columns):
-        labels = labels + np.asarray(adata.obs[col]).astype(str).astype(object)
-        if idx != len(label_columns) - 1:
-            labels = labels + label_delimiter
-    labels = labels.astype(str)
-    adata.obs["memento_group"] = labels
+        labels = np.full(adata.n_obs, "sg" + label_delimiter, dtype=object)
+        for idx, col in enumerate(label_columns):
+            labels = labels + np.asarray(adata.obs[col]).astype(str).astype(
+                object)
+            if idx != len(label_columns) - 1:
+                labels = labels + label_delimiter
+        labels = labels.astype(str)
+        adata.obs["memento_group"] = labels
 
-    uns = adata.uns["memento"]
-    uns["label_columns"] = list(label_columns)
-    uns["label_delimiter"] = label_delimiter
-    _, first = np.unique(labels, return_index=True)
-    uns["groups"] = labels[np.sort(first)].tolist()  # order of appearance
-    uns["q"] = np.asarray(adata.obs[uns["q_column"]])
+        uns = adata.uns["memento"]
+        uns["label_columns"] = list(label_columns)
+        uns["label_delimiter"] = label_delimiter
+        _, first = np.unique(labels, return_index=True)
+        uns["groups"] = labels[np.sort(first)].tolist()  # order of appearance
+        uns["q"] = np.asarray(adata.obs[uns["q_column"]])
 
-    X_csc = adata.X.tocsc()
-    group_masks = {g: labels == g for g in uns["groups"]}
-    uns["group_cells"] = {g: X_csc[m, :] for g, m in group_masks.items()}
-    uns["group_q"] = {
-        g: float(np.asarray(uns["q"][m], dtype=np.float64).mean())
-        for g, m in group_masks.items()
-    }
+    with profiling.phase("create_groups.split"):
+        X_csc = adata.X.tocsc()
+        group_masks = {g: labels == g for g in uns["groups"]}
+        uns["group_cells"] = {g: X_csc[m, :] for g, m in group_masks.items()}
+        uns["group_q"] = {
+            g: float(np.asarray(uns["q"][m], dtype=np.float64).mean())
+            for g, m in group_masks.items()
+        }
     if not inplace:
         return adata
 
@@ -256,6 +274,7 @@ def _to_numeric(col: np.ndarray) -> np.ndarray:
     return col
 
 
+@profiling.traced
 def get_groups(adata) -> ColumnTable:
     """Group labels split back into their columns, indexed by group name
     (numeric where every label parses)."""
@@ -269,81 +288,92 @@ def get_groups(adata) -> ColumnTable:
         index=np.array(uns["groups"]))
 
 
+@profiling.traced
 def compute_1d_moments(adata, inplace=True, min_perc_group=0.7,
                        filter_genes=True, gene_list=None, mesh=None):
     """Mean, variance and residual variance per group.  ``mesh`` is checked
     and otherwise changes nothing, as in ``setup_memento``."""
-    if mesh is not None:
-        as_mesh(mesh)
-    if "memento" not in adata.uns:
-        raise ValueError("run setup_memento first")
-    if not inplace:
-        adata = adata.copy()
-    uns = adata.uns["memento"]
+    with profiling.phase("compute_1d_moments.sf_bins"):
+        if mesh is not None:
+            as_mesh(mesh)
+        if "memento" not in adata.uns:
+            raise ValueError("run setup_memento first")
+        if not inplace:
+            adata = adata.copy()
+        uns = adata.uns["memento"]
 
-    if "size_factor" not in uns:
-        _bin_size_factor_uns(adata)
+        if "size_factor" not in uns:
+            _bin_size_factor_uns(adata)
 
     groups = uns["groups"]
-    uns["1d_moments"] = {
-        g: _observed_moments(uns, uns["group_cells"][g],
-                             uns["group_cells"][g].shape[0],
-                             uns["group_q"][g], uns["size_factor"][g])
-        for g in groups
-    }
-
-    uns["gene_filter"] = {}
-    uns["gene_rv_filter"] = {}
-    for g in groups:
-        cells = uns["group_cells"][g]
-        obs_mean = np.asarray(cells.mean(axis=0)).ravel()
-        uns["gene_filter"][g] = (obs_mean > uns["filter_mean_thresh"]) & (
-            uns["1d_moments"][g][1] > 0)
-        obs_max = cells.max(axis=0).toarray().ravel() \
-            if sparse.issparse(cells) else cells.max(axis=0)
-        uns["gene_rv_filter"][g] = obs_max >= 2
-
-    gene_masks = np.vstack([uns["gene_filter"][g] for g in groups])
-    overall_gene_mask = gene_masks.mean(axis=0) > min_perc_group
-    uns["overall_gene_filter"] = overall_gene_mask
-    uns["gene_list"] = adata.var.index[overall_gene_mask].tolist()
-
-    if filter_genes:
-        uns["group_cells"] = {
-            g: uns["group_cells"][g][:, overall_gene_mask] for g in groups}
+    with profiling.phase("compute_1d_moments.observed"):
         uns["1d_moments"] = {
-            g: [uns["1d_moments"][g][0][overall_gene_mask],
-                uns["1d_moments"][g][1][overall_gene_mask]]
+            g: _observed_moments(uns, uns["group_cells"][g],
+                                 uns["group_cells"][g].shape[0],
+                                 uns["group_q"][g], uns["size_factor"][g])
             for g in groups
         }
-        uns["gene_rv_filter"] = {
-            g: uns["gene_rv_filter"][g][overall_gene_mask] for g in groups}
-        adata._inplace_subset_var(overall_gene_mask)
+
+    with profiling.phase("compute_1d_moments.filter"):
+        uns["gene_filter"] = {}
+        uns["gene_rv_filter"] = {}
+        for g in groups:
+            cells = uns["group_cells"][g]
+            obs_mean = np.asarray(cells.mean(axis=0)).ravel()
+            uns["gene_filter"][g] = (obs_mean > uns["filter_mean_thresh"]) & (
+                uns["1d_moments"][g][1] > 0)
+            obs_max = cells.max(axis=0).toarray().ravel() \
+                if sparse.issparse(cells) else cells.max(axis=0)
+            uns["gene_rv_filter"][g] = obs_max >= 2
+
+        gene_masks = np.vstack([uns["gene_filter"][g] for g in groups])
+        overall_gene_mask = gene_masks.mean(axis=0) > min_perc_group
+        uns["overall_gene_filter"] = overall_gene_mask
+        uns["gene_list"] = adata.var.index[overall_gene_mask].tolist()
+
+    if filter_genes:
+        with profiling.phase("compute_1d_moments.subset"):
+            uns["group_cells"] = {
+                g: uns["group_cells"][g][:, overall_gene_mask]
+                for g in groups}
+            uns["1d_moments"] = {
+                g: [uns["1d_moments"][g][0][overall_gene_mask],
+                    uns["1d_moments"][g][1][overall_gene_mask]]
+                for g in groups
+            }
+            uns["gene_rv_filter"] = {
+                g: uns["gene_rv_filter"][g][overall_gene_mask]
+                for g in groups}
+            adata._inplace_subset_var(overall_gene_mask)
 
     # one shared mv-regressor fit on the concatenated filtered moments
-    mean_concat = np.concatenate(
-        [uns["1d_moments"][g][0][uns["gene_rv_filter"][g]] for g in groups])
-    var_concat = np.concatenate(
-        [uns["1d_moments"][g][1][uns["gene_rv_filter"][g]] for g in groups])
-    shared_fit = fit_mv_regressor(mean_concat, var_concat)
-    uns["mv_regressor"] = {"all": shared_fit}
-    for g in groups:
-        uns["mv_regressor"][g] = shared_fit
+    with profiling.phase("compute_1d_moments.fit"):
+        mean_concat = np.concatenate(
+            [uns["1d_moments"][g][0][uns["gene_rv_filter"][g]]
+             for g in groups])
+        var_concat = np.concatenate(
+            [uns["1d_moments"][g][1][uns["gene_rv_filter"][g]]
+             for g in groups])
+        shared_fit = fit_mv_regressor(mean_concat, var_concat)
+        uns["mv_regressor"] = {"all": shared_fit}
+        for g in groups:
+            uns["mv_regressor"][g] = shared_fit
 
-    for g in groups:
-        uns["1d_moments"][g].append(_residual_variance_np(
-            uns["1d_moments"][g][0], uns["1d_moments"][g][1],
-            uns["mv_regressor"][g]))
+        for g in groups:
+            uns["1d_moments"][g].append(_residual_variance_np(
+                uns["1d_moments"][g][0], uns["1d_moments"][g][1],
+                uns["mv_regressor"][g]))
 
     if gene_list is not None:
-        given = np.isin(adata.var.index, list(gene_list))
-        uns["group_cells"] = {g: uns["group_cells"][g][:, given]
-                              for g in groups}
-        uns["1d_moments"] = {g: [m[given] for m in uns["1d_moments"][g]]
-                             for g in groups}
-        uns["gene_rv_filter"] = {g: uns["gene_rv_filter"][g][given]
+        with profiling.phase("compute_1d_moments.subset"):
+            given = np.isin(adata.var.index, list(gene_list))
+            uns["group_cells"] = {g: uns["group_cells"][g][:, given]
+                                  for g in groups}
+            uns["1d_moments"] = {g: [m[given] for m in uns["1d_moments"][g]]
                                  for g in groups}
-        adata._inplace_subset_var(given)
+            uns["gene_rv_filter"] = {g: uns["gene_rv_filter"][g][given]
+                                     for g in groups}
+            adata._inplace_subset_var(given)
 
     if not inplace:
         return adata
@@ -357,6 +387,7 @@ def compute_1d_moments(adata, inplace=True, min_perc_group=0.7,
 CORR_ROW_BLOCK = 4096
 
 
+@profiling.traced
 def get_corr_matrix(adata, group, mesh=None, device=None):
     """All-by-all ``[G, G]`` correlation matrix of one group, as blocked
     float32 matrix products on ``device`` (default ``cuda``) finished in
@@ -388,40 +419,47 @@ def _corr_from_cov_np(cov, var_1, var_2):
     return np.where(invalid, 1.0, np.clip(corr, -1.0, 1.0))
 
 
+@profiling.traced
 def compute_2d_moments(adata, gene_pairs, inplace=True):
     """Observed covariance and correlation of each ``(gene_1, gene_2)`` name
     pair in every group (a custom tuple's ``fn_cov`` on the sparse matrix,
     with ``idx1``/``idx2``, for a custom estimator)."""
-    if not inplace:
-        adata = adata.copy()
-    uns = adata.uns["memento"]
-    if "size_factor" not in uns:
-        _bin_size_factor_uns(adata)
-    et = uns["estimator_type"]
-    model = est.get_noise_model(et)
+    with profiling.phase("compute_2d_moments.cov"):
+        if not inplace:
+            adata = adata.copy()
+        uns = adata.uns["memento"]
+        if "size_factor" not in uns:
+            _bin_size_factor_uns(adata)
+        et = uns["estimator_type"]
+        model = est.get_noise_model(et)
 
-    mapping = {name: i for i, name in enumerate(adata.var.index)}
-    idx1 = np.array([mapping[a] for a, _ in gene_pairs], dtype=int)
-    idx2 = np.array([mapping[b] for _, b in gene_pairs], dtype=int)
-    uns["2d_moments"] = {"gene_pairs": gene_pairs, "gene_idx_1": idx1,
-                         "gene_idx_2": idx2}
+        mapping = {name: i for i, name in enumerate(adata.var.index)}
+        idx1 = np.array([mapping[a] for a, _ in gene_pairs], dtype=int)
+        idx2 = np.array([mapping[b] for _, b in gene_pairs], dtype=int)
+        uns["2d_moments"] = {"gene_pairs": gene_pairs, "gene_idx_1": idx1,
+                             "gene_idx_2": idx2}
 
-    for g in uns["groups"]:
-        cells = uns["group_cells"][g]
-        if model is None:
-            cov = np.asarray(et[1](
-                data=cells.tocsc(), n_obs=cells.shape[0], q=uns["group_q"][g],
-                size_factor=uns["size_factor"][g], idx1=idx1, idx2=idx2))
-        else:
-            sf = uns["size_factor"][g] if model.relative \
-                else np.ones(cells.shape[0])
-            cov = cov_sparse_pairs(cells, sf, uns["group_q"][g], idx1, idx2,
-                                   model)
-        var_1 = uns["1d_moments"][g][1][idx1]
-        var_2 = uns["1d_moments"][g][1][idx2]
-        uns["2d_moments"][g] = {
-            "cov": cov, "corr": _corr_from_cov_np(cov, var_1, var_2),
-            "var_1": var_1, "var_2": var_2}
+        covs = {}
+        for g in uns["groups"]:
+            cells = uns["group_cells"][g]
+            if model is None:
+                covs[g] = np.asarray(et[1](
+                    data=cells.tocsc(), n_obs=cells.shape[0],
+                    q=uns["group_q"][g], size_factor=uns["size_factor"][g],
+                    idx1=idx1, idx2=idx2))
+            else:
+                sf = uns["size_factor"][g] if model.relative \
+                    else np.ones(cells.shape[0])
+                covs[g] = cov_sparse_pairs(cells, sf, uns["group_q"][g], idx1,
+                                           idx2, model)
+
+    with profiling.phase("compute_2d_moments.corr"):
+        for g, cov in covs.items():
+            var_1 = uns["1d_moments"][g][1][idx1]
+            var_2 = uns["1d_moments"][g][1][idx2]
+            uns["2d_moments"][g] = {
+                "cov": cov, "corr": _corr_from_cov_np(cov, var_1, var_2),
+                "var_1": var_1, "var_2": var_2}
     if not inplace:
         return adata
 
@@ -498,6 +536,7 @@ def _run_items(n_items, run_block, checkpoint_dir, checkpoint_block, name,
                       resume_filter=resume_filter)
 
 
+@profiling.traced
 def ht_1d_moments(
     adata,
     covariate,
@@ -611,6 +650,7 @@ def ht_1d_moments(
         return adata
 
 
+@profiling.traced
 def ht_2d_moments(
     adata,
     covariate,
@@ -757,6 +797,7 @@ def _groupby_keys(adata, groupby):
     return labels[np.sort(first)]
 
 
+@profiling.traced
 def get_1d_moments(adata, groupby=None):
     """Per-group log mean and log residual variance tables (and cell counts
     per group), or their cell-weighted averages over the values of
@@ -798,6 +839,7 @@ def get_1d_moments(adata, groupby=None):
     return groupby_mean, groupby_var
 
 
+@profiling.traced
 def get_1d_ht_result(adata) -> ColumnTable:
     """1D test results: one row per (gene, treatment column) with columns
     ``gene, tx, de_coef, de_se, de_pval, dv_coef, dv_se, dv_pval``; with
@@ -827,6 +869,7 @@ def _pair_table(uns) -> ColumnTable:
                         "gene_2": np.array([b for _, b in pairs])})
 
 
+@profiling.traced
 def get_2d_moments(adata, groupby=None):
     """Per-group observed correlations of every pair (and cell counts per
     group), or their cell-weighted averages over the values of ``groupby``
@@ -859,6 +902,7 @@ def get_2d_moments(adata, groupby=None):
     return groupby_corr
 
 
+@profiling.traced
 def get_2d_ht_result(adata) -> ColumnTable:
     """2D test results: one row per pair with columns ``gene_1, gene_2,
     corr_coef, corr_se, corr_pval``."""
@@ -870,6 +914,7 @@ def get_2d_ht_result(adata) -> ColumnTable:
     return result
 
 
+@profiling.traced
 def prepare_to_save(adata, keep=False):
     """Make ``uns['memento']`` serializable: drop the mv-regressor fits, or
     with ``keep`` store each as the string of its pickle."""

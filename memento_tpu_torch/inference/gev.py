@@ -18,10 +18,13 @@ non-finite entries.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import scipy.special as sspec
 import scipy.stats as sstats
 
+from ..utils import profiling
 from .asl import gev_refine
 
 KS_GATE = 0.05
@@ -249,13 +252,14 @@ def ks_pvalue_batch(tails_sorted: np.ndarray, params: np.ndarray) -> np.ndarray:
 
 
 def _one_side(sorted_null: np.ndarray, points: np.ndarray, side: str,
-              nm_iters: int):
+              nm_iters: int, counter: Optional[str] = None):
     """Run the tail schedule for one side over all rows.
 
     Args:
       sorted_null: ``[M, B]`` ascending.
       points: ``[M]`` evaluation points (-|stat| left, |stat| right).
       side: 'left' (CDF of the smallest tail) or 'right' (SF of the largest).
+      counter: ``profiling`` counter that each stage adds its rows to.
 
     Returns:
       (value ``[M]`` scaled tail probability, resolved ``[M]`` bool).
@@ -267,6 +271,8 @@ def _one_side(sorted_null: np.ndarray, points: np.ndarray, side: str,
     for n_exec in TAIL_SCHEDULE:
         if unres.size == 0:
             break
+        if counter is not None:
+            profiling.count(counter, unres.size)
         le = min(n_exec, b)
         tails = (sorted_null[unres, :le] if side == "left"
                  else sorted_null[unres, b - le:])
@@ -289,13 +295,16 @@ def _one_side(sorted_null: np.ndarray, points: np.ndarray, side: str,
 
 
 def gev_refine_batch(stats: np.ndarray, nulls: np.ndarray,
-                     fallbacks: np.ndarray, nm_iters: int = 150) -> np.ndarray:
+                     fallbacks: np.ndarray, nm_iters: int = 150,
+                     counter: Optional[str] = None) -> np.ndarray:
     """Reference GEV refinement for many tests at once.
 
     Args:
       stats: ``[M]`` observed statistics.
       nulls: ``[M, B]`` null draws (already re-centred for bootstrap).
       fallbacks: ``[M]`` counting p-values used when fitting fails.
+      counter: ``profiling`` counter of the rows fitted, summed over the
+        tail schedule's stages and both sides.
 
     Returns:
       ``[M]`` refined p-values.
@@ -339,14 +348,15 @@ def gev_refine_batch(stats: np.ndarray, nulls: np.ndarray,
     sorted_null = np.sort(nulls[idx], axis=1)
     abs_stat = np.abs(stats[idx])
 
-    left_val, left_ok = _one_side(sorted_null, -abs_stat, "left", nm_iters)
+    left_val, left_ok = _one_side(sorted_null, -abs_stat, "left", nm_iters,
+                                  counter)
     # the reference attempts the right tail only when the left succeeded
     # and falls back when either side fails
     right_val = np.zeros(idx.size)
     right_ok = np.zeros(idx.size, bool)
     if left_ok.any():
         rv, rk = _one_side(sorted_null[left_ok], abs_stat[left_ok], "right",
-                           nm_iters)
+                           nm_iters, counter)
         right_val[left_ok] = rv
         right_ok[left_ok] = rk
     both = left_ok & right_ok

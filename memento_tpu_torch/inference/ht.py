@@ -426,39 +426,48 @@ class _DeferredGEV:
     overlapped with later tiles.  Each task writes a disjoint set of
     ``(row, col)`` entries of its p-value array, submitted only after the
     counting p-values of those rows were stored.  ``finish()`` joins every
-    task and re-raises the first worker error.
+    task and re-raises the first worker error.  A task is the span
+    ``<label>.gev.refine`` (children ``.wait``, the copy, and
+    ``<label>.gev.fit``); ``<label>.gev.rows`` counts the rows submitted
+    and ``<label>.gev.fit_rows`` the rows fitted, stage by stage.
     """
 
-    def __init__(self, phase_name: str):
+    def __init__(self, label: str):
         self._pool = ThreadPoolExecutor(max_workers=1)
         self._futs = []
-        self._phase = phase_name
+        self._label = label
 
     def preload(self) -> None:
         """Start the refit's imports on the worker (the first import of
         ``scipy.stats`` takes seconds), so that they overlap the first
         tiles instead of holding up the tile loop."""
         def load():
-            with profiling.phase(self._phase + ".import"):
+            with profiling.phase(f"{self._label}.gev.refine.import"):
                 from . import gev  # noqa: F401
 
-        self._futs.append(self._pool.submit(load))
+        self._futs.append(profiling.submit(self._pool, load))
 
     def submit(self, rows_dev, gi: np.ndarray, gk: np.ndarray,
                out_pval: np.ndarray, resampling: str) -> None:
+        label = self._label
+
         def work():
             from .gev import gev_refine_batch
 
-            with profiling.phase(self._phase):
-                rows = rows_dev.cpu().numpy().astype(np.float64)
+            with profiling.phase(f"{label}.gev.refine"):
+                with profiling.wait():
+                    rows = rows_dev.cpu().numpy().astype(np.float64)
                 stats = rows[:, 0]
                 nulls = rows[:, 1:]
                 if resampling == "bootstrap":
                     nulls = nulls - stats[:, None]
-                out_pval[gi, gk] = gev_refine_batch(
-                    stats, nulls, out_pval[gi, gk])
+                with profiling.phase(f"{label}.gev.fit"):
+                    out_pval[gi, gk] = gev_refine_batch(
+                        stats, nulls, out_pval[gi, gk],
+                        counter=f"{label}.gev.fit_rows")
 
-        self._futs.append(self._pool.submit(work))
+        profiling.count(f"{label}.gev.rows", len(gi))
+        self._futs.append(profiling.submit(self._pool, work))
 
     def finish(self) -> None:
         try:
@@ -574,11 +583,14 @@ def _warm_up(label: str, key, n_items: int, pack: Callable, launch: Callable,
         if marker in _WARMED:
             return
     try:
-        with profiling.phase(f"{label}.warm", device=dev), warming(), _on(dev):
+        with profiling.phase(f"{label}.warm"), warming(), _on(dev):
             host_args, static = pack(0, min(WARM_ROWS, n_items), WARM_ROWS)
             tile_args = tuple(torch.as_tensor(np.ascontiguousarray(a),
                                               device=dev) for a in host_args)
             launch(0, tile_args, static, dev)
+            if dev.type == "cuda":  # first use is paid here, not in tile 0
+                with profiling.wait():
+                    torch.cuda.synchronize(dev)
     except Exception as exc:
         raise RuntimeError(f"{label}: the first-use warm-up on {dev} "
                            "failed") from exc
@@ -675,8 +687,9 @@ def _treatment_tile(treatment: np.ndarray, start: int, stop: int, t: int):
 
 def _run_tiles(label: str, unit: str, stats: Sequence[str], n_items: int,
                tile_size: int, kt: int, pack: Callable, launch: Callable, *,
-               devices, nproc: int, resampling: str, approx: bool,
-               max_pending: int, verbose: bool, note: str, warm_key):
+               devices, nproc: int, num_boot: int, resampling: str,
+               approx: bool, max_pending: int, verbose: bool, note: str,
+               warm_key):
     """The tile loop of both tests.
 
     ``pack(start, stop, rows)`` builds the host inputs of the items
@@ -691,50 +704,53 @@ def _run_tiles(label: str, unit: str, stats: Sequence[str], n_items: int,
     its share (``process_tile_starts``) and the rows merge across the
     processes at the end.  Results are harvested at most ``max_pending``
     tiles behind the launches; flagged p-value tails go to the GEV worker.
-    Phases are timed as ``<label>.*`` (they wait for the device only when
-    the tiles have one device, so that several devices run at once).
+    No items run no tile.
+
+    Spans (``utils/profiling``; none waits for the device): per tile
+    ``<label>.pack.wait`` (this thread waiting for the packer's
+    ``<label>.compress+pack``), ``<label>.transfer``, ``<label>.launch``
+    (host, with attributes T, U, R, B and ``steps``, the binomial-chain
+    steps) inside ``<label>.dispatch`` (the device's time), and per harvested
+    statistic ``<label>.harvest``; ``.wait`` spans where the host blocks on
+    the device.
 
     Returns ``{<stat>_coef, <stat>_se, <stat>_pval}`` ``[n_items, Kt]``
     float64 arrays for each name in ``stats``.
     """
     out = {f"{stat}_{k}": np.full((n_items, kt), np.nan)
            for stat in stats for k in ("coef", "se", "pval")}
-    starts = list(range(0, n_items, tile_size))
+    starts = list(range(0, n_items, tile_size)) if n_items else []
     if nproc > 1:
         from ..parallel.distributed import process_tile_starts
 
         starts = process_tile_starts(starts)
-    sync_dev = devices[0] if len(set(devices)) == 1 else None
     n_local = sum(min(s + tile_size, n_items) - s for s in starts)
     progress = profiling.ProgressReporter(n_local, unit=unit, label=label,
                                           enabled=bool(verbose))
     progress.note(note)
-    gev_worker = _DeferredGEV(f"{label}.gev.refine")
+    gev_worker = _DeferredGEV(label)
+    keys = ("coef", "se", "pval") + (() if approx else ("needs_gev",))
 
     def harvest(start, stop, res):
         n = stop - start
         sl = slice(start, stop)
         for stat in stats:
             with profiling.phase(f"{label}.harvest"):
-                coef, se, pval = (res[f"{stat}_{k}"][:n].cpu().numpy()
-                                  for k in ("coef", "se", "pval"))
-            rows_dev = gi = gk = None
-            if not approx:
-                with profiling.phase(f"{label}.gev"):
-                    needs = res[f"{stat}_needs_gev"][:n].cpu().numpy()
-                    if needs.any():
-                        # gather only the flagged rows on the device; the
-                        # copy and the refit run on the worker thread
-                        gi, gk = np.nonzero(needs)
-                        full = res[f"{stat}_coef_full"]
-                        rows_dev = full[torch.as_tensor(gi, device=full.device),
-                                        torch.as_tensor(gk, device=full.device)]
-            out[f"{stat}_coef"][sl] = coef
-            out[f"{stat}_se"][sl] = se
-            out[f"{stat}_pval"][sl] = pval
-            if rows_dev is not None:
-                gev_worker.submit(rows_dev, start + gi, gk,
-                                  out[f"{stat}_pval"], resampling)
+                with profiling.wait():
+                    host = [res[f"{stat}_{k}"][:n].cpu().numpy()
+                            for k in keys]
+                profiling.resolve()
+                out[f"{stat}_coef"][sl], out[f"{stat}_se"][sl], \
+                    out[f"{stat}_pval"][sl] = host[:3]
+                if not approx and host[3].any():
+                    # gather only the flagged rows on the device; the copy
+                    # and the refit run on the worker thread
+                    gi, gk = np.nonzero(host[3])
+                    full = res[f"{stat}_coef_full"]
+                    rows_dev = full[torch.as_tensor(gi, device=full.device),
+                                    torch.as_tensor(gk, device=full.device)]
+                    gev_worker.submit(rows_dev, start + gi, gk,
+                                      out[f"{stat}_pval"], resampling)
         progress.update(stop - start)
 
     def _pack(start):
@@ -745,23 +761,27 @@ def _run_tiles(label: str, unit: str, stats: Sequence[str], n_items: int,
     # one prefetch thread: tile t+1 compresses while tile t runs
     prefetch = ThreadPoolExecutor(1, thread_name_prefix=f"{label}-pack")
     try:
-        fut = prefetch.submit(_pack, starts[0]) if starts else None
+        fut = profiling.submit(prefetch, _pack, starts[0]) if starts else None
         if starts:
             if not approx:
                 gev_worker.preload()
             for dev in dict.fromkeys(devices):
                 _warm_up(label, warm_key, n_items, pack, launch, dev)
         for i, start in enumerate(starts):
-            host_args, static = fut.result()
-            fut = (prefetch.submit(_pack, starts[i + 1])
+            with profiling.wait(f"{label}.pack.wait"):
+                host_args, static = fut.result()
+            fut = (profiling.submit(prefetch, _pack, starts[i + 1])
                    if i + 1 < len(starts) else None)
             dev = devices[i % len(devices)]
             with _on(dev):
-                with profiling.phase(f"{label}.transfer", device=sync_dev):
+                with profiling.phase(f"{label}.transfer"):
                     tile_args = tuple(
                         torch.as_tensor(np.ascontiguousarray(a), device=dev)
                         for a in host_args)
-                with profiling.phase(f"{label}.dispatch", device=sync_dev):
+                r, t, u = tile_args[0].shape
+                with profiling.device_phase(f"{label}.dispatch", dev), \
+                        profiling.phase(f"{label}.launch", T=t, U=u, R=r,
+                                        B=num_boot):
                     res = launch(start, tile_args, static, dev)
             pending.append((start, min(start + tile_size, n_items), res))
             while len(pending) > max_pending:
@@ -900,7 +920,8 @@ def run_ht_1d(
 
     return _run_tiles(
         "ht1d", "genes", ("mean", "var"), g, tile_size, kt, pack, launch,
-        devices=devices, nproc=nproc, resampling=resampling, approx=approx,
+        devices=devices, nproc=nproc, num_boot=num_boot,
+        resampling=resampling, approx=approx,
         max_pending=max_pending, verbose=verbose,
         note=f"{g} genes in tiles of {tile_size} on {_names(devices)} "
              f"(sampler {_names(samplers.values())}, {nproc} processes)",
@@ -1022,7 +1043,8 @@ def run_ht_2d(
 
     return _run_tiles(
         "ht2d", "pairs", ("corr",), p, tile_size, kt, pack, launch,
-        devices=devices, nproc=nproc, resampling=resampling, approx=approx,
+        devices=devices, nproc=nproc, num_boot=num_boot,
+        resampling=resampling, approx=approx,
         max_pending=max_pending, verbose=verbose,
         note=f"{p} pairs in tiles of {tile_size} on {_names(devices)} "
              f"(sampler {_names(samplers.values())}, {nproc} processes)",

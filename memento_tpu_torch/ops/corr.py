@@ -14,9 +14,9 @@ Counterpart of ``memento_tpu/ops/corr.py``.  Two paths:
   full float32: TF32 would keep three decimal digits of sums that are about
   to be subtracted from each other.  Its stages are timed as ``profiling``
   phases: ``corr.densify`` (host blocks) and ``corr.upload`` (their copies)
-  inside ``corr.gram`` (the whole stream, synchronized at its end), then
-  ``corr.finish`` with ``corr.gather`` (the Gram rows' copies back) inside
-  it.
+  inside ``corr.gram`` (a device span: the device's time over the whole
+  stream), then ``corr.finish`` with ``corr.gather`` (the Gram rows' copies
+  back) inside it.
 """
 
 from __future__ import annotations
@@ -138,7 +138,7 @@ def corr_matrix_device(X, size_factor, q, var, model: NoiseModel,
     def to_dev(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype), device=dev)
 
-    with _full_float32_matmul(), profiling.phase("corr.gram", device=dev):
+    with _full_float32_matmul(), profiling.device_phase("corr.gram", dev):
         for start in range(0, n, block):
             stop = min(start + block, n)
             with profiling.phase("corr.densify"):

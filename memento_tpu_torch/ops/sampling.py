@@ -39,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from ..device import generator
+from ..utils import profiling
 from . import philox
 
 CASCADE_TAU = 8.0
@@ -141,9 +142,14 @@ def _cascade_sums(counts, weights, n_obs, num_boot: int, randoms):
 
 
 def _occupied_bins(counts) -> int:
-    """One past the last bin occupied in any row (later bins draw 0)."""
+    """One past the last bin occupied in any row (later bins draw 0): the
+    steps of the chain, added to the open span's ``steps``.  Reading it
+    waits for the device (a ``profiling.wait`` span)."""
     occupied = (counts > 0).reshape(-1, counts.shape[-1]).any(0)
-    return int(occupied.nonzero().max()) + 1 if bool(occupied.any()) else 0
+    with profiling.wait():
+        n = int(occupied.nonzero().max()) + 1 if bool(occupied.any()) else 0
+    profiling.tally("steps", n)
+    return n
 
 
 def _binomial_chain(counts, n_obs, num_boot: int, gen):

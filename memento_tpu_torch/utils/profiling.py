@@ -1,47 +1,277 @@
-"""Named phase timers, the device profiler and progress reporting.
+"""The program's span recorder, its counters, the device profiler and
+progress reporting.
 
-Counterpart of ``memento_tpu/utils/profiling.py``.  CUDA work is
-asynchronous: a phase given a CUDA ``device`` calls
-``torch.cuda.synchronize`` before it reads the clock at both ends, so its
-time covers the device work launched inside it.  Each phase is also a
-``torch.profiler.record_function`` range, so a ``device_trace`` ties the
-device's kernels and idle gaps to the host stage that ran around them.
+Counterpart of ``memento_tpu/utils/profiling.py``, whose registry readers
+(``timings``, ``report``, ``steady_state``) this keeps.  A span is a named
+stretch of work:
+
+- ``phase(name, **attrs)`` times a stretch on the host clock;
+- ``device_phase(name, device)`` times the device work launched inside it
+  by two CUDA events on the current stream.  Nothing waits for them: the
+  span is resolved when the host next waits anyway (``resolve()`` after a
+  device read, or ``timings()``).  On the CPU it is a host span;
+- ``wait()`` times a stretch in which the host blocks on the device; it is
+  named after the span around it plus ``.wait``;
+- ``request(name)`` (or the decorator ``traced``) opens a root span with a
+  new request id, unique within the process.
+
+Each span records its name, its start and end (``time.perf_counter_ns``),
+its thread, its parent's id and its request id.  The parent is the span
+open in the same ``contextvars`` context, so work handed to another thread
+through ``submit(fn, ...)`` keeps the request and parent of the span that
+handed it over.  No span synchronizes the device.
+
+The registry keeps, per name, the count, total, largest and first duration
+(what ``timings()`` reads); the span records go into a ring of the last
+``RING_SIZE``; ``count(name, n)`` adds to a counter.  ``export_spans``
+writes the ring as a Chrome trace on the clock of ``torch.profiler``'s
+traces, and ``device_trace`` writes it beside its own trace, so the spans
+line up with the device's kernels and idle gaps.  While the profiler runs,
+each span is also a ``record_function`` range of the same name.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import contextvars
+import functools
+import itertools
+import json
 import os
+import re
 import sys
+import threading
 import time
-from collections import defaultdict
 from typing import Dict, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from ..device import resolve_device
 
-_TIMINGS: Dict[str, list] = defaultdict(list)
-
 TRACE_FILE = "trace.json"  # the Chrome trace ``device_trace`` writes
+SPANS_FILE = "spans.json"  # the spans ``device_trace`` writes beside it
+RING_SIZE = 200_000  # span records kept
+
+# ``perf_counter_ns() + _WALL_NS`` is the wall clock in ns, the clock of a
+# ``torch.profiler`` trace (``ts`` µs plus ``baseTimeNanoseconds``)
+_WALL_NS = time.time_ns() - time.perf_counter_ns()
+
+_LOCK = threading.Lock()
+_AGG: Dict[str, list] = {}  # name -> [count, total_s, max_s, first_s]
+_COUNTERS: Dict[str, int] = {}
+_RING = collections.deque(maxlen=RING_SIZE)
+_PENDING = []  # device spans whose end event the device has not passed
+_SPAN_IDS = itertools.count(1)
+_REQUEST_IDS = itertools.count(1)
+_CURRENT = contextvars.ContextVar("memento_tpu_torch_span", default=None)
+_THREAD = threading.local()  # .id: the OS thread id, read once per thread
 
 
-def _sync(device) -> None:
-    if device is not None and torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+def _profiler_on() -> bool:
+    # ``record_function`` costs ~10 µs even with no profiler running
+    return getattr(_autograd_profiler, "_is_profiler_enabled", True)
 
 
-@contextlib.contextmanager
-def phase(name: str, device=None):
-    """Time a named phase into the process-global registry."""
-    with torch.profiler.record_function(name):
-        _sync(device)
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            _sync(device)
-            _TIMINGS[name].append(time.perf_counter() - t0)
+def _thread_id() -> int:
+    # ``threading.get_native_id`` took 11 µs a call on the card's host
+    try:
+        return _THREAD.id
+    except AttributeError:
+        _THREAD.id = threading.get_native_id()
+        return _THREAD.id
+
+
+def _add_locked(name: str, seconds: float) -> None:
+    agg = _AGG.get(name)
+    if agg is None:
+        _AGG[name] = [1, seconds, seconds, seconds]
+    else:
+        agg[0] += 1
+        agg[1] += seconds
+        if seconds > agg[2]:
+            agg[2] = seconds
+
+
+def add_time(name: str, seconds: float) -> None:
+    """Add a duration measured elsewhere to ``name``'s totals (no span
+    record)."""
+    with _LOCK:
+        _add_locked(name, float(seconds))
+
+
+class Span:
+    """One span; a context manager.  ``s`` is the duration counted in the
+    registry (``None`` while a device span is unresolved)."""
+
+    __slots__ = ("name", "id", "parent", "request", "thread", "t0", "t1",
+                 "s", "attrs", "_token", "_rf")
+
+    def __init__(self, name: str, attrs: Optional[dict] = None,
+                 request: int = 0):
+        self.name = name
+        self.attrs = attrs or None
+        self.request = request
+        self.s = None
+        self._rf = None
+
+    def __enter__(self):
+        parent = _CURRENT.get()
+        self.id = next(_SPAN_IDS)
+        if parent is None:
+            self.parent = 0
+        else:
+            self.parent = parent.id
+            self.request = self.request or parent.request
+        self.thread = _thread_id()
+        self._token = _CURRENT.set(self)
+        if _profiler_on():
+            self._rf = torch.profiler.record_function(
+                self.name, f"request={self.request}")
+            self._rf.__enter__()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def _close(self):
+        self.t1 = time.perf_counter_ns()
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+            self._rf = None
+        _CURRENT.reset(self._token)
+        self._token = None
+
+    def __exit__(self, *exc):
+        self._close()
+        self.s = (self.t1 - self.t0) / 1e9
+        with _LOCK:
+            _add_locked(self.name, self.s)
+        _RING.append(self)
+        return False
+
+
+class _DeviceSpan(Span):
+    """A span timed by two CUDA events on the device's current stream."""
+
+    __slots__ = ("device", "events")
+
+    def __init__(self, name: str, device: torch.device):
+        super().__init__(name)
+        self.device = device
+        self.events = None
+
+    def __enter__(self):
+        super().__enter__()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(torch.cuda.current_stream(self.device))
+        self.events = (start, None)
+        return self
+
+    def __exit__(self, *exc):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(torch.cuda.current_stream(self.device))
+        self.events = (self.events[0], end)
+        self._close()
+        with _LOCK:
+            _PENDING.append(self)
+        _RING.append(self)
+        resolve()
+        return False
+
+
+def _resolve(block: bool) -> None:
+    with _LOCK:
+        done = []
+        for span in _PENDING:
+            start, end = span.events
+            if block:
+                end.synchronize()
+            elif not end.query():
+                continue
+            span.s = start.elapsed_time(end) / 1e3
+            span.events = None
+            _add_locked(span.name, span.s)
+            done.append(span)
+        if done:
+            _PENDING[:] = [sp for sp in _PENDING if sp.s is None]
+
+
+def resolve() -> None:
+    """Count the device spans whose work the device has finished; waits
+    for nothing.  Call it after a read that waited for the device."""
+    if _PENDING:
+        _resolve(block=False)
+
+
+def phase(name: str, **attrs) -> Span:
+    """A span on the host clock; ``attrs`` go into its record."""
+    return Span(name, attrs)
+
+
+def device_phase(name: str, device=None) -> Span:
+    """A span whose duration is the device's time between its two ends (on
+    the current stream of ``device``); a host span when the device is not
+    CUDA."""
+    dev = resolve_device(device)
+    return _DeviceSpan(name, dev) if dev.type == "cuda" else Span(name)
+
+
+def wait(name: Optional[str] = None):
+    """A span in which the host waits for the device (or for another
+    thread): ``name``, or the open span's name plus ``.wait``.  Outside
+    any span, or inside a wait, it records nothing."""
+    if name is None:
+        parent = _CURRENT.get()
+        if parent is None or parent.name.endswith(".wait"):
+            return contextlib.nullcontext()
+        name = parent.name + ".wait"
+    return Span(name)
+
+
+def request(name: str) -> Span:
+    """A root span with a new request id; inside an open span, a child
+    span of the same request."""
+    if _CURRENT.get() is None:
+        return Span(name, request=next(_REQUEST_IDS))
+    return Span(name)
+
+
+def traced(fn):
+    """Decorator: run ``fn`` inside ``request(fn.__name__)``."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with request(fn.__name__):
+            return fn(*args, **kwargs)
+
+    return wrapper
+
+
+def submit(pool, fn, *args):
+    """``pool.submit(fn, *args)`` in a copy of the caller's context, so the
+    spans ``fn`` opens keep the caller's request and parent."""
+    return pool.submit(contextvars.copy_context().run, fn, *args)
+
+
+def tally(key: str, n: int) -> None:
+    """Add ``n`` to attribute ``key`` of the open span (nothing outside
+    one)."""
+    span = _CURRENT.get()
+    if span is not None:
+        if span.attrs is None:
+            span.attrs = {}
+        span.attrs[key] = span.attrs.get(key, 0) + int(n)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name``."""
+    with _LOCK:
+        _COUNTERS[name] = _COUNTERS.get(name, 0) + int(n)
+
+
+def counters() -> Dict[str, int]:
+    """The counters since the last ``reset_timings()``."""
+    with _LOCK:
+        return dict(_COUNTERS)
 
 
 def _tensors(tree):
@@ -65,21 +295,69 @@ def sync_pull(tree) -> float:
 
 
 def timings() -> Dict[str, dict]:
-    """Summary of all recorded phases."""
+    """Summary of all recorded phases (waits for unresolved device
+    spans)."""
+    if _PENDING:
+        _resolve(block=True)
+    with _LOCK:
+        items = [(name, list(agg)) for name, agg in _AGG.items()]
     return {
         name: {
-            "count": len(vals),
-            "total_s": sum(vals),
-            "mean_s": sum(vals) / len(vals),
-            "max_s": max(vals),
-            "first_s": vals[0],
+            "count": n,
+            "total_s": total,
+            "mean_s": total / n,
+            "max_s": largest,
+            "first_s": first,
         }
-        for name, vals in list(_TIMINGS.items())
+        for name, (n, total, largest, first) in items
     }
 
 
 def reset_timings() -> None:
-    _TIMINGS.clear()
+    """Clear the registry, the counters and the span records."""
+    with _LOCK:
+        _AGG.clear()
+        _COUNTERS.clear()
+        _RING.clear()
+        _PENDING.clear()
+
+
+def spans() -> list:
+    """The span records in the ring, oldest closed first, as dicts."""
+    return [{"name": sp.name, "id": sp.id, "parent": sp.parent,
+             "request": sp.request, "thread": sp.thread,
+             "start_ns": sp.t0, "end_ns": sp.t1, "s": sp.s,
+             "device": isinstance(sp, _DeviceSpan),
+             "attrs": dict(sp.attrs or {})}
+            for sp in list(_RING)]
+
+
+def export_spans(path: str, base_ns: int = 0, since_ns: int = 0) -> int:
+    """Write the ring as a Chrome trace of ``X`` events: ``ts`` in µs
+    after ``base_ns`` on the wall clock (a ``torch.profiler`` trace's
+    ``baseTimeNanoseconds``), ids, parents, request ids and attributes in
+    ``args``, a device span's device seconds as ``device_s``.  Only spans
+    that end after ``since_ns`` (``perf_counter_ns``) go in.  Returns the
+    number of events."""
+    pid = os.getpid()
+    events = []
+    for sp in spans():
+        if sp["end_ns"] <= since_ns:
+            continue
+        args = {"id": sp["id"], "parent": sp["parent"],
+                "request": sp["request"], **sp["attrs"]}
+        if sp["device"]:
+            args["device_s"] = sp["s"]
+        events.append({
+            "ph": "X", "cat": "span", "name": sp["name"], "pid": pid,
+            "tid": sp["thread"],
+            "ts": (sp["start_ns"] + _WALL_NS - base_ns) / 1e3,
+            "dur": (sp["end_ns"] - sp["start_ns"]) / 1e3,
+            "args": args})
+    with open(path, "w") as f:
+        json.dump({"traceEvents": events, "displayTimeUnit": "ms",
+                   "baseTimeNanoseconds": base_ns}, f)
+    return len(events)
 
 
 def steady_state(total_s: float, prefix: str, n_items: int) -> Dict[str, float]:
@@ -194,6 +472,15 @@ class ProgressReporter:
         return {"elapsed_s": elapsed, "rate": rate, "n": self.done}
 
 
+def _trace_base_ns(path: str) -> int:
+    """The ``baseTimeNanoseconds`` of a ``torch.profiler`` trace (written
+    at its head), 0 if absent."""
+    with open(path, "rb") as f:
+        found = re.search(rb'"baseTimeNanoseconds"\s*:\s*(\d+)',
+                          f.read(1 << 16))
+    return int(found.group(1)) if found else 0
+
+
 @contextlib.contextmanager
 def device_trace(logdir: Optional[str] = None, device=None):
     """Trace a region with ``torch.profiler`` when a logdir is given; a
@@ -203,7 +490,9 @@ def device_trace(logdir: Optional[str] = None, device=None):
     prefetch thread and refits tails on a worker), the device's kernels and
     copies when ``device`` resolves to CUDA (``None`` means ``cuda``).
     Yields the profile, whose ``key_averages()`` the caller may read; on
-    exit writes the Chrome trace to ``logdir/TRACE_FILE``.
+    exit writes the Chrome trace to ``logdir/TRACE_FILE`` and the spans
+    that ended inside the region to ``logdir/SPANS_FILE``, on the trace's
+    clock.
     """
     if logdir is None:
         yield None
@@ -215,10 +504,19 @@ def device_trace(logdir: Optional[str] = None, device=None):
         activities.append(ProfilerActivity.CUDA)
     config = _ExperimentalConfig(profile_all_threads=True)
     os.makedirs(logdir, exist_ok=True)
+    since = time.perf_counter_ns()
     with profile(activities=activities, experimental_config=config) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
+    trace = os.path.join(logdir, TRACE_FILE)
+    prof.export_chrome_trace(trace)
+    if _PENDING:
+        _resolve(block=True)
+    export_spans(os.path.join(logdir, SPANS_FILE), _trace_base_ns(trace),
+                 since)
 
 
-__all__ = ["phase", "sync_pull", "timings", "reset_timings", "report",
-           "ProgressReporter", "device_trace"]
+__all__ = ["phase", "device_phase", "wait", "request", "traced", "submit",
+           "tally", "count", "counters", "resolve", "add_time", "spans",
+           "export_spans", "sync_pull", "timings", "reset_timings",
+           "steady_state", "report", "ProgressReporter", "device_trace",
+           "TRACE_FILE", "SPANS_FILE", "RING_SIZE"]

@@ -45,10 +45,12 @@ REGISTRY = {
 
 
 def _fill(registry):
-    for module in (j_prof, t_prof):
-        module.reset_timings()
-        for name, vals in registry.items():
-            module._TIMINGS[name].extend(vals)
+    j_prof.reset_timings()
+    t_prof.reset_timings()
+    for name, vals in registry.items():
+        j_prof._TIMINGS[name].extend(vals)
+        for val in vals:
+            t_prof.add_time(name, val)
 
 
 @pytest.fixture
@@ -103,7 +105,8 @@ def test_steady_state_counts_the_port_import_once():
     try:
         without = t_prof.steady_state(9.75, "ht1d", 960)
         assert without == j_prof.steady_state(9.75, "ht1d", 960)
-        t_prof._TIMINGS["ht1d.gev.refine.import"].extend([1.5, 0.25, 0.25])
+        for val in (1.5, 0.25, 0.25):
+            t_prof.add_time("ht1d.gev.refine.import", val)
         got = t_prof.steady_state(9.75, "ht1d", 960)
     finally:
         t_prof.reset_timings()
