@@ -71,6 +71,16 @@ Phases, one line each:
       the share of the bound reached); the wrapper's tensor operations and
       the launch alone, the launch with the rows longest first and in index
       order;
+  (l) the exact sampler's kernel (``csrc/multinomial_bootstrap.cu``) on
+      one group call of each main path (group 0's rows of (b)'s 1D tile,
+      W = 2, and of its 2D tile, W = 5): with one seed, draw by draw against
+      its plain version on the kernel's Philox stream
+      (``fused_multinomial_sums_philox``) on ~128 rows, B = 256, at most
+      ``MN_FLIP_SHARE`` of the replicates off; two launches bit for bit and
+      B = 1000 the first 1000 replicates of B = 2000; in distribution
+      against the ``torch.binomial`` chain it replaced (B = 2000); its time,
+      the launch's alone and the chain's at B = 1000 beside the bound
+      (``memento_tpu_torch.utils.roofline.multinomial_roofline``);
   (j) the main paths under the device trace: one ``ht_1d_moments`` and one
       ``ht_2d_moments`` at (c)'s and (e)'s settings on their state inside
       ``profiling.device_trace`` (Chrome traces in ``chiprun_out/traces/``),
@@ -254,7 +264,8 @@ def hyper_cov(data, n_obs, q, size_factor, idx1=None, idx2=None):
 
 def measured(fn, *a, **kw):
     """``fn(*a, **kw)`` between two device synchronisations: its result and
-    ``{s, peak_gib, cascade_launches, custom_paths}`` of the call."""
+    ``{s, peak_gib, cascade_launches, multinomial_launches, custom_paths}``
+    of the call."""
     import torch
 
     from memento_tpu_torch.ops import bootstrap, cuda_kernels
@@ -269,7 +280,9 @@ def measured(fn, *a, **kw):
     return out, {
         "s": round(time.perf_counter() - t0, 3),
         "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3),
-        "cascade_launches": cuda_kernels.LAUNCHES["cascade_bootstrap"],
+        "cascade_launches": cuda_kernels.LAUNCHES[cuda_kernels.CASCADE],
+        "multinomial_launches":
+            cuda_kernels.LAUNCHES[cuda_kernels.MULTINOMIAL],
         "custom_paths": dict(bootstrap.CUSTOM_PATHS)}
 
 
@@ -331,10 +344,11 @@ def options_full_width(mtt, adata, dev, base, base2, planted2, X, obs,
 
     out = {}
     planted = planted_genes_of(base)
-    # exact multinomial, 1D and 2D: the cascade kernel held against exact
-    # conditional binomials at full scale
+    # exact multinomial, 1D and 2D: the cascade kernel held against the
+    # multinomial kernel's exact conditional binomials at full scale
     res, info = measured(run_1d, sampler="multinomial")
-    require(info["cascade_launches"] == 0, f"multinomial 1D: {info}")
+    require(info["cascade_launches"] == 0 and info["multinomial_launches"],
+            f"multinomial 1D: {info}")
     same_coefficients(res, base, ("de_coef", "dv_coef"), "multinomial 1D")
     info["se_log_ratio"] = {c: se_log_ratio(res, base, c)
                             for c in ("de_se", "dv_se")}
@@ -347,7 +361,8 @@ def options_full_width(mtt, adata, dev, base, base2, planted2, X, obs,
     out["1d_multinomial"] = info
 
     res, info = measured(run_2d, sampler="multinomial")
-    require(info["cascade_launches"] == 0, f"multinomial 2D: {info}")
+    require(info["cascade_launches"] == 0 and info["multinomial_launches"],
+            f"multinomial 2D: {info}")
     same_coefficients(res, base2, ("corr_coef",), "multinomial 2D")
     info["se_log_ratio"] = se_log_ratio(res, base2, "corr_se")
     require(info["se_log_ratio"] < 0.10,
@@ -721,6 +736,96 @@ def same_seed_check(cuda_kernels, sampling, counts, weights, n_rows, seed,
             f"{SAME_SEED_MEDIAN}), share within {SAME_SEED_WITHIN} "
             f"{share:.4f} (limit {SAME_SEED_SHARE})")
     return median, share, float(rel.max())
+
+
+# phase (l): the share of replicates whose multinomial kernel sums may differ
+# from its plain version's on one seed (any of the W sums by more than
+# MN_FLIP_REL): a waiting-time or rejection decision flipped by the last bit
+# of logf / log1pf on the card changes that replicate's draws from there on
+# (tests/test_torch_multinomial.py::FLIP_SHARE).  A reused or skipped Philox
+# word would move most replicates.
+MN_FLIP_SHARE = 1e-3
+MN_FLIP_REL = 1e-4
+
+
+def multinomial_group_call(cuda_kernels, sampling, counts, weights, n_obs,
+                           seed, label):
+    """Phase (l) on one group call of the exact sampler, ``counts [T, U]``,
+    ``weights [T, U, W]`` and ``n_obs [T]`` of one cell group as the tiles
+    hand them to ``fused_multinomial_sums_cuda``: with one seed, draw by
+    draw against the plain version on the kernel's Philox stream
+    (``fused_multinomial_sums_philox``) on ~128 rows, B = 256; two launches
+    bit for bit and B = 1000 the first 1000 replicates of B = 2000; in
+    distribution against the ``torch.binomial`` chain
+    (``check_distribution``, B = 2000); then the wrapper's, the launch's and
+    the chain's times at B = NUM_BOOT beside the bound
+    (``utils/roofline.py::multinomial_roofline``).  Returns the record of
+    the kernels line."""
+    import torch
+
+    from memento_tpu_torch.utils.roofline import multinomial_roofline
+
+    t_dim, u_dim = counts.shape
+    w_dim = weights.shape[-1]
+    occupied = (counts > 0).sum(1)
+    fn = cuda_kernels.fused_multinomial_sums_cuda
+
+    sub = slice(0, None, max(1, t_dim // 128))
+    c_s, w_s, n_s = (x[sub].contiguous() for x in (counts, weights, n_obs))
+    k = fn(c_s, w_s, n_s, 256, seed)
+    p = sampling.fused_multinomial_sums_philox(c_s, w_s, n_s, 256, seed)
+    rel = ((k - p).abs() / p.abs().clamp_min(1e-6)).amax(1)  # [rows, B]
+    flip_share = float((rel > MN_FLIP_REL).float().mean())
+    require(bool(torch.isfinite(k).all()) and flip_share <= MN_FLIP_SHARE,
+            f"{label}: same seed, {flip_share:.3g} of the replicates off the "
+            f"plain version (limit {MN_FLIP_SHARE})")
+
+    w1 = weights.clone()
+    w1[..., 0] = 1.0  # weight 1: the resample's total
+    k = fn(counts, w1, n_obs, 2000, seed + 1)
+    require(torch.equal(k, fn(counts, w1, n_obs, 2000, seed + 1)),
+            f"{label}: two launches with one seed differ")
+    require(torch.equal(k[..., :1000], fn(counts, w1, n_obs, 1000, seed + 1)),
+            f"{label}: B=1000 is not the first 1000 replicates of B=2000")
+    chain = sampling.fused_bootstrap_sums(counts, w1, n_obs, 2000, seed + 2,
+                                          sampler="multinomial")
+    torch.cuda.synchronize()
+    # a row's total: the group's cells, or 0 for a padding row (no counts),
+    # which both versions leave at 0
+    cons_tol = conservation_limit(float(n_obs.max()), int(occupied.max()))
+    err, worst_mean, worst_sd = check_distribution(
+        k.cpu().numpy(), chain.cpu().numpy(), counts.sum(1).cpu().numpy(),
+        cons_tol, label)
+    del k, chain, w1
+
+    ms = time_ms(lambda: fn(counts, weights, n_obs, NUM_BOOT, 7), reps=10)
+    inputs = cuda_kernels.cascade_inputs(counts)
+    launch_ms = time_ms(lambda: cuda_kernels.launch_multinomial(
+        weights, n_obs, inputs, NUM_BOOT, 7), reps=10)
+    chain_ms = time_ms(lambda: sampling.fused_bootstrap_sums(
+        counts, weights, n_obs, NUM_BOOT, 7, sampler="multinomial"), reps=2)
+    roof = multinomial_roofline(counts.cpu().numpy(), NUM_BOOT, ms / 1e3,
+                                w_dim)
+    bound_ms = 1e3 * roof["bound_s"]
+    require(ms >= bound_ms, f"{label}: {ms} ms is below the bound of "
+            f"{bound_ms} ms")
+    return {
+        "shape": {"rows": t_dim, "bins": u_dim, "W": w_dim, "B": NUM_BOOT,
+                  "max_occupied": int(occupied.max()),
+                  "mean_occupied": float(occupied.float().mean())},
+        "ms": ms,
+        "launch_ms": launch_ms,
+        "plain_ms": chain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": BOUND_BY[roof["limiting_resource"]],
+        "roofline_share": bound_ms / ms,
+        "draws_per_s": roof["draws_per_s"],
+        "philox_calls_per_replicate": roof["philox_calls_per_replicate"],
+        "max_abs_err": err,
+        "distribution": {"mean_dev_sd": worst_mean, "sd_ratio_dev": worst_sd},
+        "same_seed": {"rows": int(c_s.shape[0]), "B": 256,
+                      "flip_share": flip_share},
+    }
 
 
 def time_ms(fn, reps: int) -> float:
@@ -1865,6 +1970,37 @@ def main() -> int:
                 f"{roof['philox_calls_per_replicate']} Philox calls a "
                 f"replicate | {card}")
 
+    # ---- (l) the exact sampler's kernel on one group call of each path ----
+    n_groups = len(adata.uns["memento"]["groups"])
+    multinomial = {}
+    for key, what in (("1d", "1D"), ("2d", "2D")):
+        counts, weights, n_obs = tiles[key]
+        rows = counts.shape[0] // n_groups  # group 0's rows
+        rec = multinomial_group_call(
+            cuda_kernels, sampling, counts[:rows].contiguous(),
+            weights[:rows].contiguous(), n_obs[:rows].contiguous(),
+            args.seed + 19, f"(l) {what} group call")
+        multinomial[key] = rec
+        log(f"(l) multinomial_bootstrap on group 0 of the {what} main path's "
+            f"tile [{rec['shape']['rows']} rows x {rec['shape']['bins']} "
+            f"bins, max occupied {rec['shape']['max_occupied']}, mean "
+            f"occupied {rec['shape']['mean_occupied']:.1f}], "
+            f"W={rec['shape']['W']}: same seed vs the plain version on its "
+            f"Philox stream [{rec['same_seed']['rows']} rows, B=256]: "
+            f"{rec['same_seed']['flip_share']:.3g} of the replicates off "
+            f"(limit {MN_FLIP_SHARE}) | relaunch and B=1000-of-2000 "
+            f"bit-identical | against the torch.binomial chain, B=2000: "
+            f"conservation max |kernel - chain| {rec['max_abs_err']:.4g}, "
+            f"mean dev {rec['distribution']['mean_dev_sd']:.3f} sd, sd ratio "
+            f"dev {rec['distribution']['sd_ratio_dev']:.3f} (limits 0.15) | "
+            f"B={NUM_BOOT}: kernel {rec['ms']:.3f} ms (launch alone "
+            f"{rec['launch_ms']:.3f}) | chain {rec['plain_ms']:.3f} ms | "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+            f"{rec['roofline_share']:.3f} of the bound reached, "
+            f"{rec['draws_per_s']:.4g} draws/s, "
+            f"{rec['philox_calls_per_replicate']:.1f} Philox calls a "
+            f"replicate | {card}")
+
     # ---- (j) the main paths under the device trace --------------------------
     t_j = time.perf_counter()
     traces = traced_paths(mtt, adata, dev, result, result2, tiles["1d"],
@@ -1938,7 +2074,22 @@ def main() -> int:
                                 "same_seed": same_seed[key]}
                           for key in ("1d_ns", "2d_ns")},
     }
-    print(json.dumps({"kernels": [kernel]}))
+    # the exact sampler's kernel: the 1D group call's numbers (W = 2) with
+    # the launches of (h)'s exact runs; "W5" those of the 2D group call
+    launches_mn = {path: options[f"{path}_multinomial"]["multinomial_launches"]
+                   for path in ("1d", "2d")}
+    kernel_mn = {
+        "name": "multinomial_bootstrap",
+        "route": "cuda",
+        "source": "memento_tpu_torch/csrc/multinomial_bootstrap.cu",
+        "replaces": "memento_tpu/ops/sampling.py:164",
+        "launches": sum(launches_mn.values()),
+        "launches_by_path": launches_mn,
+        "library_ms": None,
+        **multinomial["1d"],
+        "W5": multinomial["2d"],
+    }
+    print(json.dumps({"kernels": [kernel, kernel_mn]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,9 @@ drivers and returns the same arrays, bit for bit, for the same seed:
   ``examples/eqtl_north_star.py`` and of ``bench.py``'s eQTL configuration;
 - ``kernel_counts``: ``examples/kernel_bench.py``'s kernel tiles.
 
+``multinomial_counts`` (the port's own) shapes the exact sampler's group
+calls for ``kernel_bench``.
+
 ``north_star_device`` draws ``north_star_simulate``'s law (not its numbers)
 on a torch device, chunk by chunk, for runs that cannot wait for the
 sequential numpy generator.
@@ -181,4 +184,25 @@ def kernel_counts(rng, t_dim: int, u_dim: int, ragged: bool,
         c = rng.integers(1, 12, size=o).astype(np.float32)
         c[0] += n - c.sum()
         counts[i, :o] = c
+    return counts
+
+
+def multinomial_counts(rng, t_dim: int, n_cells: int, pair: bool):
+    """Rows as one cell group's compression gives them, ``[t_dim, U]``
+    float32, each summing to ``n_cells``: the multiplicities of each gene's
+    distinct counts (Poisson-gamma, means log-uniform in [0.01, 30]; zero
+    first), or (``pair``) of each gene pair's distinct joint counts (means
+    in [0.3, 30], the two genes sharing a gamma factor), padded to one U."""
+    if pair:
+        mu = np.exp(rng.uniform(np.log(0.3), np.log(30.0), (t_dim, 2)))
+        g = rng.gamma(2.0, 0.5, (t_dim, n_cells))
+        x = rng.poisson(mu[:, 0, None] * g) * 100_000 \
+            + rng.poisson(mu[:, 1, None] * g)
+    else:
+        mu = np.exp(rng.uniform(np.log(0.01), np.log(30.0), t_dim))
+        x = rng.poisson(rng.gamma(2.0, mu[:, None] / 2.0, (t_dim, n_cells)))
+    rows = [np.unique(r, return_counts=True)[1] for r in x]
+    counts = np.zeros((t_dim, max(len(r) for r in rows)), np.float32)
+    for i, r in enumerate(rows):
+        counts[i, :len(r)] = r
     return counts

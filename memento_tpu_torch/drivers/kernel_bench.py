@@ -1,4 +1,5 @@
-"""The cascade kernel alone at the JAX package's benchmark tiles.
+"""The bootstrap kernels alone: the cascade at the JAX package's benchmark
+tiles, the exact multinomial at the shapes of its group calls.
 
     python -m memento_tpu_torch.drivers.kernel_bench [--device cuda]
 
@@ -11,12 +12,21 @@ launch (the JAX script's W = 3 is launched by no path), through
 ``ops/cuda_kernels.py::fused_bootstrap_sums_cuda``: its time (CUDA events,
 the mean of ``KB_REPS`` launches after one more), its plain version's
 (``ops/sampling.py::fused_bootstrap_sums``, once after one more) and its
-bound from ``utils/roofline.py``.  Prints one JSON line (``_report.py``);
-on the CPU the "kernel" is the plain version, timed by the host clock.
+bound from ``utils/roofline.py``.
+
+The exact sampler (``"multinomial"``: ``csrc/multinomial_bootstrap.cu``
+through ``fused_multinomial_sums_cuda``) at one group call of each test
+(``MULTINOMIAL_CALLS``, rows from ``_data.multinomial_counts``), B =
+KB_BOOT_HEAD: the wrapper's time, the launch's alone, and the
+``torch.binomial`` chain's that it replaced
+(``sampling.fused_bootstrap_sums``, once after one more; KB_PLAIN).
+
+Prints one JSON line (``_report.py``); on the CPU the "kernel" is the plain
+version, timed by the host clock.
 
 Environment knobs: KB_ROWS (1,024), KB_BINS (1,024), KB_BINS_HEAD (600),
 KB_BOOT (10,000), KB_BOOT_HEAD (1,000), KB_REPS (10), KB_PLAIN (1: time the
-plain version; 0: skip it).
+plain version and the chain; 0: skip them).
 """
 
 from __future__ import annotations
@@ -28,12 +38,20 @@ import numpy as np
 import torch
 
 from ..ops import cuda_kernels, sampling
-from ..utils.roofline import roofline
+from ..utils.roofline import multinomial_roofline, roofline
 from . import _report
-from ._data import kernel_counts
+from ._data import kernel_counts, multinomial_counts
 
 N_TRIALS = 50_000  # each row's sum: above any dense row's 39 x U
 WIDTHS = (2, 5)
+# The exact sampler's group calls in the benchmark's cells, (test, rows,
+# cells of the group, W): the atlas sweep's largest cell type (0.38 of
+# 200,000 cells over 2 conditions x 4 donors: 9,500 cells a group) in a 1D
+# tile of 2,752 genes (``ht.default_tile_size`` at 8 groups, B = 1,000), and
+# a 2D query's largest (1,000 target pairs) in the PBMC design's largest
+# type (0.38 of 20,000 cells over 2 x 8: 475 cells a group);
+# ``benchmarks/configs``, ``benchmarks/traffic/*-exact.json``
+MULTINOMIAL_CALLS = (("1d", 2752, 9500, 2), ("2d", 1000, 475, 5))
 
 
 def knobs() -> dict:
@@ -42,7 +60,8 @@ def knobs() -> dict:
             "bins_head": env("KB_BINS_HEAD", 600),
             "num_boot": env("KB_BOOT", 10_000),
             "num_boot_head": env("KB_BOOT_HEAD", 1000),
-            "reps": env("KB_REPS", 10), "plain": env("KB_PLAIN", 1) == 1}
+            "reps": env("KB_REPS", 10), "plain": env("KB_PLAIN", 1) == 1,
+            "multinomial_calls": MULTINOMIAL_CALLS}
 
 
 def tiles(cfg: dict, seed: int = 0):
@@ -120,6 +139,46 @@ def run(cfg: dict, dev: torch.device) -> list:
     return records
 
 
+def run_multinomial(cfg: dict, dev: torch.device, seed: int = 0) -> list:
+    """The exact sampler's kernel at the group calls of
+    ``cfg["multinomial_calls"]``, beside the chain it replaced."""
+    rng = np.random.default_rng([seed, 2])
+    wgen = torch.Generator().manual_seed(seed)
+    b = cfg["num_boot_head"]
+    records = []
+    for label, rows, cells, w_dim in cfg["multinomial_calls"]:
+        counts_np = multinomial_counts(rng, rows, cells, pair=label == "2d")
+        counts = torch.as_tensor(counts_np, device=dev)
+        n_obs = counts.sum(1)
+        weights = torch.rand((*counts.shape, w_dim), generator=wgen).to(dev)
+        inputs = cuda_kernels.cascade_inputs(counts)
+        cuda_kernels.reset_launches()
+        ms = time_ms(lambda: cuda_kernels.fused_multinomial_sums_cuda(
+            counts, weights, n_obs, b, 7), cfg["reps"], dev)
+        launches = cuda_kernels.LAUNCHES[cuda_kernels.MULTINOMIAL]
+        launch_ms = time_ms(lambda: cuda_kernels.launch_multinomial(
+            weights, n_obs, inputs, b, 7), cfg["reps"], dev) \
+            if dev.type == "cuda" else None
+        chain_ms = time_ms(lambda: sampling.fused_bootstrap_sums(
+            counts, weights, n_obs, b, 7, sampler="multinomial"), 1, dev) \
+            if cfg["plain"] else None
+        roof = multinomial_roofline(counts_np, b, ms / 1e3, w_dim)
+        rec = {"tile": [rows, counts.shape[1], b], "kind": label,
+               "W": w_dim, "cells": cells,
+               "mean_row_bins": float((counts_np > 0).sum(1).mean()),
+               "ms": ms, "launch_ms": launch_ms, "chain_ms": chain_ms,
+               "bound_ms": roof["bound_s"] * 1e3,
+               "bound_by": {"fp32": "operations",
+                            "hbm": "bytes"}[roof["limiting_resource"]],
+               "share_of_bound": roof["bound_s"] * 1e3 / ms,
+               "launches": launches}
+        _report.log(f"multinomial {label}: T={rows} U={counts.shape[1]} "
+                    f"B={b} W={w_dim}: {ms:.3f} ms (launch {launch_ms}), "
+                    f"chain {chain_ms}")
+        records.append(rec)
+    return records
+
+
 def main(argv=None) -> int:
     args = _report.parse_args(__doc__, argv)
     dev = _report.select_device(args.device)
@@ -127,10 +186,12 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         from ..ops import kernel_build
 
-        kernel_build.build(["cascade_bootstrap"])
+        kernel_build.build([cuda_kernels.CASCADE, cuda_kernels.MULTINOMIAL])
     _report.reset(dev)
     records = run(cfg, dev)
-    _report.emit({"config": cfg, "tiles": records, "device": str(dev),
+    multinomial = run_multinomial(cfg, dev)
+    _report.emit({"config": cfg, "tiles": records,
+                  "multinomial": multinomial, "device": str(dev),
                   **_report.resources(dev)})
     return 0
 

@@ -167,9 +167,11 @@ def ht_1d_tile(
     The cascade samplers resample every group of the tile in one call.  The
     ``multinomial``, ``poisson`` and ``gaussian`` samplers run per group and
     per chunk of at most ``boot_chunk`` replicates, seeded by (0, group,
-    chunk).  A user estimator ``custom_1d`` runs per group on exact
-    multinomial draws (or the named materialized sampler), seeded by
-    (0, group).
+    chunk); on the card each such ``multinomial`` call is one launch of the
+    multinomial kernel.  A user estimator ``custom_1d`` runs per group on
+    exact multinomial draws of the ``torch.binomial`` chain (or the named
+    materialized sampler), seeded by (0, group): on the card the same law
+    as the kernel's, not the same draws.
 
     Returns a dict of ``[T, Kt]`` tensors (observed coefficients, bootstrap
     SEs, first-stage p-values, GEV flags) and the full coefficient tensors

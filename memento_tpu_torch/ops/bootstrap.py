@@ -11,9 +11,10 @@ so each replicate's moments are weighted sums of one resample: two per gene
 (W = 2; one for ``mean_only``), five per gene pair (W = 5: both means, the
 cross moment and both second moments from a single joint resample).  The
 fused samplers (the cascade, in the CUDA kernel or its plain version, and
-the exact multinomial) compute them without materializing ``n_ub``; the
-``poisson`` and ``gaussian`` samplers materialize the draws and contract
-them (``mean_var_compressed`` / ``cov_compressed``).
+the exact multinomial, in its CUDA kernel on the card and as the
+``torch.binomial`` chain elsewhere) compute them without materializing
+``n_ub``; the ``poisson`` and ``gaussian`` samplers materialize the draws
+and contract them (``mean_var_compressed`` / ``cov_compressed``).
 
 User estimators (``bootstrap_1d_custom`` / ``bootstrap_2d_custom``) take
 materialized draws.  An estimator that, called on small tensors on the run's
@@ -32,7 +33,8 @@ import numpy as np
 import torch
 
 from ..device import generator, is_warming
-from .cuda_kernels import fused_bootstrap_sums_cuda
+from .cuda_kernels import (fused_bootstrap_sums_cuda,
+                           fused_multinomial_sums_cuda)
 from .estimators import NoiseModel, cov_compressed, mean_var_compressed
 from .sampling import bootstrap_counts, fused_bootstrap_sums
 
@@ -70,7 +72,8 @@ def _moment_sums(counts, weights, n_rows, num_boot: int, seed: int,
                  sampler: str):
     """Per-cell weighted sums of the resample, ``[..., W, B]``: the batch
     flattens to rows (each with its own trial count) for the kernel, its
-    plain version or the exact multinomial sums."""
+    plain version or the exact multinomial sums (the multinomial kernel for
+    a CUDA tensor, the ``torch.binomial`` chain on any other device)."""
     batch = counts.shape[:-1]
     u_dim = counts.shape[-1]
     w_dim = weights.shape[-1]
@@ -79,6 +82,8 @@ def _moment_sums(counts, weights, n_rows, num_boot: int, seed: int,
             n_rows.reshape(-1).contiguous(), num_boot, seed)
     if sampler == "cascade_cuda":
         sums = fused_bootstrap_sums_cuda(*flat)
+    elif sampler == "multinomial" and counts.is_cuda:
+        sums = fused_multinomial_sums_cuda(*flat)
     elif sampler in ("cascade", "multinomial"):
         sums = fused_bootstrap_sums(*flat, sampler=sampler)
     else:
@@ -98,8 +103,9 @@ def bootstrap_1d(values, counts, inv_sf, inv_sf_sq, n_obs, q,
         batch shape ``[...]`` (rows of different groups differ).
       sampler: ``'cascade'`` (the plain version), ``'cascade_cuda'`` (the
         kernel for CUDA tensors; the plain version for CPU tensors),
-        ``'multinomial'`` (exact fused sums), ``'poisson'`` or
-        ``'gaussian'`` (materialized draws).
+        ``'multinomial'`` (exact fused sums: the multinomial kernel for
+        CUDA tensors, the ``torch.binomial`` chain otherwise),
+        ``'poisson'`` or ``'gaussian'`` (materialized draws).
 
     Returns:
       (mean, var): ``[..., B]`` float32.  Rows that collapsed to <= 1 unique
@@ -174,7 +180,10 @@ def bootstrap_2d(values_1, values_2, counts, inv_sf, inv_sf_sq, n_obs, q,
 def _exact_draws(counts, n_obs, num_boot: int, seed: int, sampler: str):
     """Materialized draws for a user estimator: the cascade samplers (an
     approximation fused with the registry's own weights) give way to the
-    exact multinomial, as in the JAX package."""
+    exact multinomial, as in the JAX package.  These are the
+    ``torch.binomial`` chain's draws on every device, so on the card they
+    agree with the fused multinomial sums (the multinomial kernel) in
+    distribution, not draw for draw."""
     if sampler in ("cascade", "cascade_cuda"):
         sampler = "multinomial"
     return bootstrap_counts(counts, n_obs, num_boot, sampler,

@@ -4,18 +4,21 @@
 port of the TPU kernel ``memento_tpu/ops/pallas_kernels.py::
 _cascade_chunk_kernel``).  For a tensor on the CPU it runs the plain version,
 ``ops/sampling.py::fused_bootstrap_sums``; for a CUDA tensor it launches the
-kernel or raises.  ``LAUNCHES`` counts kernel launches, so a run can show
-that its main path went through the kernel; ``LAUNCHES_BY_W`` splits the
-same count by the number of weights W (2 or 1 from the 1D test, 5 from the
-2D test).  Launches made inside ``device.warming()`` (the tile loop's
+kernel or raises.  ``fused_multinomial_sums_cuda`` does the same for
+``csrc/multinomial_bootstrap.cu``, the exact sampler's kernel (plain
+version: ``ops/sampling.py::fused_multinomial_sums_philox``).
+``LAUNCHES`` counts kernel launches by kernel, so a run can show that its
+main path went through the kernel; ``LAUNCHES_BY_W`` splits the cascade's
+count by the number of weights W (2 or 1 from the 1D test, 5 from the 2D
+test).  Launches made inside ``device.warming()`` (the tile loop's
 first-use warm-up) count in ``WARM_LAUNCHES`` instead.
 
 What depends on the counts alone stays plain tensor operations here, as the
 JAX package computes them outside its Pallas call (``cascade_inputs``): the
 conditional ratios and tail sums, each row's last occupied bin, and the order
 in which the blocks take the rows (longest first, so that the last wave of
-blocks does not wait for one long row).  ``launch_cascade`` is the launch
-alone.
+blocks does not wait for one long row).  ``launch_cascade`` and
+``launch_multinomial`` are the launches alone.
 """
 
 from __future__ import annotations
@@ -25,12 +28,15 @@ import ctypes
 import torch
 
 from ..device import is_warming
+from ..utils import profiling
 from . import kernel_build, sampling
 
 SUPPORTED_W = (1, 2, 5)
-LAUNCHES = {"cascade_bootstrap": 0}
-LAUNCHES_BY_W = {w: 0 for w in SUPPORTED_W}
-WARM_LAUNCHES = {"cascade_bootstrap": 0}
+CASCADE = "cascade_bootstrap"
+MULTINOMIAL = "multinomial_bootstrap"
+LAUNCHES = {CASCADE: 0, MULTINOMIAL: 0}
+LAUNCHES_BY_W = {w: 0 for w in SUPPORTED_W}  # the cascade's
+WARM_LAUNCHES = {CASCADE: 0, MULTINOMIAL: 0}
 
 
 def reset_launches() -> None:
@@ -39,19 +45,20 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
-def count_launch(w_dim: int) -> None:
-    """Count one launch of the cascade kernel with ``w_dim`` weights: in
-    ``WARM_LAUNCHES`` inside ``device.warming()``, else in ``LAUNCHES`` and
-    ``LAUNCHES_BY_W``."""
+def count_launch(w_dim: int, kernel: str = CASCADE) -> None:
+    """Count one launch of ``kernel`` with ``w_dim`` weights: in
+    ``WARM_LAUNCHES`` inside ``device.warming()``, else in ``LAUNCHES`` (and,
+    for the cascade, ``LAUNCHES_BY_W``)."""
     if is_warming():
-        WARM_LAUNCHES["cascade_bootstrap"] += 1
+        WARM_LAUNCHES[kernel] += 1
         return
-    LAUNCHES["cascade_bootstrap"] += 1
-    LAUNCHES_BY_W[w_dim] += 1
+    LAUNCHES[kernel] += 1
+    if kernel == CASCADE:
+        LAUNCHES_BY_W[w_dim] += 1
 
 
 def _cascade_library():
-    lib = kernel_build.load("cascade_bootstrap")
+    lib = kernel_build.load(CASCADE)
     fn = lib.cascade_bootstrap_launch
     if fn.argtypes is None:
         p = ctypes.c_void_p
@@ -67,9 +74,8 @@ def _cascade_library():
 def cascade_ptxas() -> dict:
     """What ptxas reported for each instance when the library was built,
     keyed by W: ``{"registers", "spill_store_bytes", "spill_load_bytes"}``."""
-    kernel_build.build(["cascade_bootstrap"])
-    usage = kernel_build.ptxas_usage(
-        kernel_build.BUILD_LOG.get("cascade_bootstrap", ""))
+    kernel_build.build([CASCADE])
+    usage = kernel_build.ptxas_usage(kernel_build.BUILD_LOG.get(CASCADE, ""))
     return {w: use for w in SUPPORTED_W for entry, use in usage.items()
             if f"ILi{w}E" in entry}
 
@@ -124,6 +130,34 @@ def launch_cascade(counts, weights, n_rows, inputs, num_boot: int, seed: int):
     return out
 
 
+def _check_tile(counts, weights, n_obs):
+    """Validate CUDA tiles ``counts [T, U]``, ``weights [T, U, W]``; returns
+    ``n_obs`` as a contiguous float32 ``[T]`` on their device."""
+    if counts.device.type != "cuda":
+        raise ValueError(f"unsupported device {counts.device}")
+    if counts.dim() != 2 or weights.dim() != 3 \
+            or weights.shape[:2] != counts.shape:
+        raise ValueError(f"expected counts [T, U] and weights [T, U, W]; got "
+                         f"{tuple(counts.shape)} and {tuple(weights.shape)}")
+    if counts.dtype != torch.float32 or weights.dtype != torch.float32:
+        raise TypeError("counts and weights must be float32")
+    if weights.device != counts.device:
+        raise ValueError("counts and weights must be on the same device")
+    if not (counts.is_contiguous() and weights.is_contiguous()):
+        raise ValueError("counts and weights must be contiguous")
+    w_dim = weights.shape[-1]
+    if w_dim not in SUPPORTED_W:
+        raise ValueError(f"W={w_dim} not in {SUPPORTED_W}")
+    return torch.broadcast_to(
+        torch.as_tensor(n_obs, dtype=torch.float32, device=counts.device),
+        (counts.shape[0],)).contiguous()
+
+
+def _empty_sums(counts, weights, num_boot: int):
+    return torch.empty((counts.shape[0], weights.shape[-1], num_boot),
+                       dtype=torch.float32, device=counts.device)
+
+
 def fused_bootstrap_sums_cuda(counts, weights, n_obs, num_boot: int,
                               seed: int):
     """Cascade bootstrap sums ``[T, W, B]`` float32.
@@ -138,32 +172,83 @@ def fused_bootstrap_sums_cuda(counts, weights, n_obs, num_boot: int,
     if counts.device.type == "cpu":
         return sampling.fused_bootstrap_sums(counts, weights, n_obs,
                                              num_boot, seed)
-    if counts.device.type != "cuda":
-        raise ValueError(f"unsupported device {counts.device}")
-    if counts.dim() != 2 or weights.dim() != 3 \
-            or weights.shape[:2] != counts.shape:
-        raise ValueError(f"expected counts [T, U] and weights [T, U, W]; got "
-                         f"{tuple(counts.shape)} and {tuple(weights.shape)}")
-    if counts.dtype != torch.float32 or weights.dtype != torch.float32:
-        raise TypeError("counts and weights must be float32")
-    if weights.device != counts.device:
-        raise ValueError("counts and weights must be on the same device")
-    if not (counts.is_contiguous() and weights.is_contiguous()):
-        raise ValueError("counts and weights must be contiguous")
-    t_dim = counts.shape[0]
-    w_dim = weights.shape[-1]
-    if w_dim not in SUPPORTED_W:
-        raise ValueError(f"W={w_dim} not in {SUPPORTED_W}")
-    n_rows = torch.broadcast_to(
-        torch.as_tensor(n_obs, dtype=torch.float32, device=counts.device),
-        (t_dim,)).contiguous()
-    if t_dim == 0 or num_boot == 0:
-        return torch.empty((t_dim, w_dim, num_boot), dtype=torch.float32,
-                           device=counts.device)
+    n_rows = _check_tile(counts, weights, n_obs)
+    if counts.shape[0] == 0 or num_boot == 0:
+        return _empty_sums(counts, weights, num_boot)
     return launch_cascade(counts, weights, n_rows, cascade_inputs(counts),
                           num_boot, seed)
 
 
-__all__ = ["fused_bootstrap_sums_cuda", "cascade_inputs", "launch_cascade",
-           "cascade_resources", "cascade_ptxas", "LAUNCHES", "LAUNCHES_BY_W",
-           "WARM_LAUNCHES", "reset_launches", "count_launch"]
+def _multinomial_library():
+    lib = kernel_build.load(MULTINOMIAL)
+    fn = lib.multinomial_bootstrap_launch
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong, p]
+        fn.restype = ctypes.c_int
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.multinomial_bootstrap_resources.argtypes = [ctypes.c_int, ip, ip,
+                                                        ip]
+        lib.multinomial_bootstrap_resources.restype = ctypes.c_int
+    return lib
+
+
+def multinomial_resources(w_dim: int) -> dict:
+    """``cascade_resources`` for the multinomial kernel."""
+    regs, shared, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = _multinomial_library().multinomial_bootstrap_resources(
+        w_dim, ctypes.byref(regs), ctypes.byref(shared), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"multinomial_bootstrap_resources: cudaError {rc}")
+    return {"registers": regs.value, "shared_bytes": shared.value,
+            "blocks_per_sm": blocks.value}
+
+
+def launch_multinomial(weights, n_rows, inputs, num_boot: int, seed: int):
+    """Launch the multinomial kernel on validated CUDA tensors; ``inputs``
+    is ``cascade_inputs(counts)`` (its ``ctail`` is not read).  Returns
+    sums ``[T, W, B]``.  Each launch counts once in the counter
+    ``multinomial.kernel`` (warm-up included) and in ``count_launch``."""
+    ratio, _, u_end, order = inputs
+    t_dim, u_dim = ratio.shape
+    w_dim = weights.shape[-1]
+    out = torch.empty((t_dim, w_dim, num_boot), dtype=torch.float32,
+                      device=ratio.device)
+    launch = _multinomial_library().multinomial_bootstrap_launch
+    stream = torch.cuda.current_stream(ratio.device).cuda_stream
+    rc = launch(ratio.data_ptr(), weights.data_ptr(), n_rows.data_ptr(),
+                u_end.data_ptr(), order.data_ptr(), out.data_ptr(), t_dim,
+                u_dim, w_dim, num_boot, int(seed) & ((1 << 64) - 1), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"multinomial_bootstrap launch failed: cudaError {rc}")
+    count_launch(w_dim, MULTINOMIAL)
+    profiling.count("multinomial.kernel")
+    return out
+
+
+def fused_multinomial_sums_cuda(counts, weights, n_obs, num_boot: int,
+                                seed: int):
+    """Exact multinomial bootstrap sums ``[T, W, B]`` float32: one launch of
+    ``csrc/multinomial_bootstrap.cu``, no host synchronisation.  For a
+    tensor on the CPU, the kernel's plain version
+    (``sampling.fused_multinomial_sums_philox``, the same draws).
+
+    Args: as ``fused_bootstrap_sums_cuda``.
+    """
+    if counts.device.type == "cpu":
+        return sampling.fused_multinomial_sums_philox(counts, weights, n_obs,
+                                                      num_boot, seed)
+    n_rows = _check_tile(counts, weights, n_obs)
+    if counts.shape[0] == 0 or num_boot == 0:
+        return _empty_sums(counts, weights, num_boot)
+    return launch_multinomial(weights, n_rows, cascade_inputs(counts),
+                              num_boot, seed)
+
+
+__all__ = ["fused_bootstrap_sums_cuda", "fused_multinomial_sums_cuda",
+           "cascade_inputs", "launch_cascade", "launch_multinomial",
+           "cascade_resources", "multinomial_resources", "cascade_ptxas",
+           "LAUNCHES", "LAUNCHES_BY_W", "WARM_LAUNCHES", "CASCADE",
+           "MULTINOMIAL", "reset_launches", "count_launch"]

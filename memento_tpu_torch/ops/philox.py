@@ -25,6 +25,12 @@ So each 32-bit word serves at most one draw, and a draw is a pure function of
 (row, bin, replicate, seed): no generator state is carried between bins.  A
 uniform is the word's top 24 bits (logical shift) times 2^-24, clamped at
 1e-7 away from 0.
+
+``csrc/multinomial_bootstrap.cu`` (the exact sampler) keys the same
+generator by its call's seed with counter ``(b, u, t, k)`` for the ``k``-th
+call of draw (row ``t``, bin ``u``, replicate ``b``): ``group_words`` with
+the bin in place of the group and ``k`` as the call (replayed by
+``sampling.fused_multinomial_sums_philox``).
 """
 
 from __future__ import annotations

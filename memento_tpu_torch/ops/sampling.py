@@ -31,7 +31,14 @@ they run on ``jax.random`` outside any kernel there:
 - ``'poisson'``: independent Poisson counts with the observed means;
 - ``'gaussian'``: the multinomial's marginal mean and variance, clamped at 0.
 
-The last two are materialized only (``bootstrap_counts``).
+The last two are materialized only (``bootstrap_counts``).  Each chain of
+binomials counts once in ``multinomial.chain`` (``utils/profiling.py``).
+
+On the card a tile's exact fused sums are instead one launch of
+``csrc/multinomial_bootstrap.cu`` (``ops/bootstrap.py::_moment_sums`` makes
+the choice), which draws the same law with ``torch.binomial``'s algorithms
+on its own Philox stream; ``fused_multinomial_sums_philox`` is its plain
+version, draw for draw.
 """
 
 from __future__ import annotations
@@ -158,7 +165,9 @@ def _binomial_chain(counts, n_obs, num_boot: int, gen):
     to the last occupied one.  ``p`` is the bin's share of the tail
     (``conditional_ratios``), clipped to ``[1e-7, 1 - 1e-7]`` for the draw;
     a bin with ``p >= 1 - 1e-6`` takes every remaining trial, and ``p <= 0``
-    or no trial left draws 0, as in the JAX package."""
+    or no trial left draws 0, as in the JAX package.  Each chain counts once
+    in the counter ``multinomial.chain``."""
+    profiling.count("multinomial.chain")
     batch = counts.shape[:-1]
     n_rows = torch.broadcast_to(
         torch.as_tensor(n_obs, dtype=torch.float32, device=counts.device),
@@ -292,6 +301,174 @@ def fused_bootstrap_sums_philox(counts, weights, n_obs, num_boot: int,
     return _cascade_sums(counts, weights, n_obs, num_boot, randoms)
 
 
+# torch.binomial's algorithms (ATen/native/Distributions.h), float32:
+# BTRS where trials * q >= BTRS_MIN, else inversion; q = min(p, 1 - p)
+BTRS_MIN = 10.0
+# torch's stirling_approx_tail for k < 10
+_STIRLING_TAIL = (0.0810614667953272, 0.0413406959554092, 0.0276779256849983,
+                  0.02079067210376509, 0.0166446911898211, 0.0138761288230707,
+                  0.0118967099458917, 0.0104112652619720, 0.00925546218271273,
+                  0.00833056343336287)
+
+
+def _over(num: float, x):
+    """``num / x`` rounded once (``num / tensor`` is a reciprocal and a
+    product in torch: two roundings)."""
+    return torch.full_like(x, num) / x
+
+
+def _stirling_tail(k):
+    """torch's ``stirling_approx_tail`` of integer-valued float32 ``k``."""
+    kp1 = k + 1.0
+    kp1sq = kp1 * kp1
+    tail = (1.0 / 12.0 - (1.0 / 360.0 - _over(1.0 / 1260.0, kp1sq))
+            / kp1sq) / kp1
+    table = torch.tensor(_STIRLING_TAIL, dtype=torch.float32, device=k.device)
+    return torch.where(k < 10.0, table[k.clamp(0.0, 9.0).long()], tail)
+
+
+class _Stream:
+    """The uniforms of a set of draws, each on its own Philox stream:
+    uniform ``i`` of draw (row, bin, replicate) is word ``i % 4`` of call
+    ``i // 4``, counter (replicate, bin, row, call) under the key ``seed``.
+    ``take(n)`` gives the next ``n`` uniforms of every draw still kept;
+    ``keep(mask)`` drops the others."""
+
+    def __init__(self, rows, bins, reps, seed: int):
+        self.ids = (rows, bins, reps)
+        self.seed = seed
+        self.used = 0
+        self.words = None
+
+    def take(self, n: int):
+        if self.used % 4 == 0:  # counter (reps, bins, rows, call)
+            self.words = philox.uniform24(philox.group_words(
+                *self.ids, self.used // 4, self.seed))
+        j = self.used % 4
+        self.used += n
+        return tuple(self.words[:, j + i] for i in range(n))
+
+    def keep(self, mask):
+        self.ids = tuple(x[mask] for x in self.ids)
+        self.words = self.words[mask]
+
+
+def _inversion(count, logq1, stream: _Stream):
+    """torch's ``binomial_inversion``: how many geometric waiting times
+    ``ceil(log(U) / log(1 - q))`` fit into ``count`` trials; flat
+    float32."""
+    num = torch.zeros_like(count)
+    geom_sum = torch.zeros_like(count)
+    idx = torch.arange(count.numel(), device=count.device)
+    while idx.numel():
+        u, = stream.take(1)
+        geom_sum[idx] = geom_sum[idx] + torch.ceil(torch.log(u) / logq1[idx])
+        going = geom_sum[idx] <= count[idx]
+        num[idx[going]] += 1.0
+        idx = idx[going]
+        stream.keep(going)
+    return num
+
+
+def _btrs(count, q, odds, stream: _Stream):
+    """torch's ``btrs`` (Hoermann's transformed rejection with squeeze) at
+    ``q <= 0.5``, ``odds = q / (1 - q)``, every constant in float32; flat
+    float32."""
+    stddev = torch.sqrt(count * q * (1.0 - q))
+    b = 2.53 * stddev + 1.15
+    a = (0.0248 * b + -0.0873) + 0.01 * q
+    c = count * q + 0.5
+    v_r = 0.92 - _over(4.2, b)
+    alpha = (_over(5.1, b) + 2.83) * stddev
+    m = torch.floor((count + 1.0) * q)
+    out = torch.empty_like(count)
+    idx = torch.arange(count.numel(), device=count.device)
+    while idx.numel():
+        u, v = stream.take(2)
+        u = u - 0.5
+        us = 0.5 - u.abs()
+        n, aa, bb = count[idx], a[idx], b[idx]
+        k = torch.floor(((2.0 * aa) / us + bb) * u + c[idx])
+        fits = (k >= 0.0) & (k <= n)
+        done = fits & (us >= 0.07) & (v <= v_r[idx])
+        check = fits & ~done
+        if bool(check.any()):
+            mm, r, kk, nn = m[idx][check], odds[idx][check], k[check], n[check]
+            lv = torch.log(v[check] * alpha[idx][check]
+                           / (aa[check] / (us[check] * us[check])
+                              + bb[check]))
+            nm1 = (nn - mm) + 1.0
+            nk1 = (nn - kk) + 1.0
+            upper = (mm + 0.5) * torch.log((mm + 1.0) / (r * nm1))
+            upper = upper + (nn + 1.0) * torch.log(nm1 / nk1)
+            upper = upper + (kk + 0.5) * torch.log(r * nk1 / (kk + 1.0))
+            upper = upper + _stirling_tail(mm)
+            upper = upper + _stirling_tail(nn - mm)
+            upper = upper - _stirling_tail(kk)
+            upper = upper - _stirling_tail(nn - kk)
+            done[check] = lv <= upper
+        out[idx[done]] = k[done]
+        idx = idx[~done]
+        stream.keep(~done)
+    return out
+
+
+def philox_binomial(count, p, rows, bins, reps, seed: int):
+    """Binomial(``count``, ``p``) draws by ``torch.binomial``'s algorithms
+    in float32, each on the Philox stream of draw (row, bin, replicate)
+    under ``seed``: what ``csrc/multinomial_bootstrap.cu`` draws.  All
+    arguments are flat tensors of one length; ``count > 0`` and ``p`` in
+    (0, 1)."""
+    count = count.to(torch.float32)
+    flip = p > 0.5
+    q = torch.where(flip, 1.0 - p, p)  # exact for p in (0.5, 1)
+    out = torch.empty_like(count)
+    btrs = count * q >= BTRS_MIN
+    i = btrs.nonzero()[:, 0]
+    if i.numel():
+        out[i] = _btrs(count[i], q[i], q[i] / (1.0 - q[i]),
+                       _Stream(rows[i], bins[i], reps[i], seed))
+    i = (~btrs).nonzero()[:, 0]
+    if i.numel():
+        out[i] = _inversion(count[i], torch.log1p(-q[i]),
+                            _Stream(rows[i], bins[i], reps[i], seed))
+    return torch.where(flip, count - out, out)
+
+
+def fused_multinomial_sums_philox(counts, weights, n_obs, num_boot: int,
+                                  seed: int):
+    """The exact fused sums ``[T, W, B]`` of ``counts [T, U]`` with the
+    random numbers and algorithms of ``csrc/multinomial_bootstrap.cu``: the
+    kernel's plain version, draw for draw (``philox_binomial``).  The law is
+    ``_binomial_chain``'s; the first B replicates are the same whatever
+    ``num_boot`` is."""
+    counts = torch.as_tensor(counts, dtype=torch.float32)
+    if counts.dim() != 2:
+        raise ValueError(f"expected counts [T, U]; got {tuple(counts.shape)}")
+    dev = counts.device
+    t_dim = counts.shape[0]
+    weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+    remaining = torch.broadcast_to(
+        torch.as_tensor(n_obs, dtype=torch.float32, device=dev),
+        (t_dim,))[:, None].expand(t_dim, num_boot).clone()
+    _, ratio = conditional_ratios(counts)
+    sums = torch.zeros(t_dim, weights.shape[-1], num_boot,
+                       dtype=torch.float32, device=dev)
+    occupied = (counts > 0).any(0).nonzero()
+    for u in range(int(occupied.max()) + 1 if occupied.numel() else 0):
+        r = ratio[:, u, None].expand_as(remaining)
+        take = r >= 1.0 - 1e-6
+        n_u = torch.where(take, remaining, torch.zeros_like(remaining))
+        ti, bi = ((r > 0.0) & ~take & (remaining > 0)).nonzero(as_tuple=True)
+        if ti.numel():
+            n_u[ti, bi] = philox_binomial(
+                remaining[ti, bi], torch.clamp(r[ti, bi], 1e-7, 1.0 - 1e-7),
+                ti, torch.full_like(ti, u), bi, seed)
+        sums += weights[:, u, :, None] * n_u[:, None, :]
+        remaining = remaining - n_u
+    return sums
+
+
 __all__ = [
     "CASCADE_TAU",
     "CASCADE_K",
@@ -300,4 +477,6 @@ __all__ = [
     "bootstrap_counts",
     "fused_bootstrap_sums",
     "fused_bootstrap_sums_philox",
+    "fused_multinomial_sums_philox",
+    "philox_binomial",
 ]

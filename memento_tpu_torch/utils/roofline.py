@@ -1,4 +1,4 @@
-"""Speed-of-light accounting for the cascade bootstrap kernel on the H100.
+"""Speed-of-light accounting for the bootstrap kernels on the H100.
 
 Counterpart of ``memento_tpu/utils/roofline.py``.  For one tile of kernel
 inputs it counts the bytes the work must move (each input read once, the
@@ -10,6 +10,10 @@ least time for the work is the larger of the two quotients.
 Two operation counts are kept: the redesigned kernel's own (``ops``), and
 the first design's (``ops_first_design``), which every record since the
 first port uses as the common yardstick.
+
+``multinomial_tile_cost`` / ``multinomial_roofline`` do the same for the
+exact sampler's kernel (``csrc/multinomial_bootstrap.cu``): the operations
+that its draws take at least, in expectation over the resample.
 """
 
 from __future__ import annotations
@@ -42,6 +46,22 @@ OPS_PHILOX_CALL = 10 * 4  # 10 rounds of 2 wide multiplies, 2 3-input xors
 OPS_NORMALS = 38  # four uniforms, two Box-Muller pairs (log, sqrt, sin, cos)
 OPS_TABLE_DRAW = 19  # 5 x (compare, add), shift, rescale, shift, clamp
 OPS_GAUSS_DRAW = 11  # sigma, CF term, round, clamp
+
+
+# The multinomial kernel's operations, per instruction as above, on the fast
+# path of each (loads, branches and address arithmetic not counted; a
+# correctly rounded division or square root, logf and log1pf each counted as
+# a few instructions, though their full sequences are longer): so its bound
+# lies below any time the kernel can reach.  Each binomial draw starts its
+# own Philox call (OPS_PHILOX_CALL); an inversion draw then takes a uniform
+# per waiting time, X + 1 of them for a draw X, four to a call; a BTRS draw
+# sets up once and takes at least one try of two uniforms.
+BTRS_MIN = 10.0  # BTRS where trials x min(p, 1 - p) reach this
+ABSORB = 1.0 - 1e-6  # a bin with this share of the tail takes every trial
+OPS_UNIFORM = 4  # shift, convert, scale, clamp
+OPS_INVERSION_STEP = OPS_UNIFORM + 8  # log, divide, ceil, add, test, count
+OPS_BTRS_SETUP = 30  # square root, two divisions, a dozen products and sums
+OPS_BTRS_TRY = 2 * OPS_UNIFORM + 14  # u - 1/2, |u|, a division, floor, tests
 
 
 def _first_design(counts: np.ndarray, w_dim: int, num_boot: int):
@@ -115,23 +135,63 @@ def cascade_tile_cost(counts: np.ndarray, num_boot: int, w_dim: int) -> dict:
     }
 
 
-def roofline(counts: np.ndarray, num_boot: int, measured_s: float,
-             w_dim: int, fp32_ops_per_s: float = PEAK_FP32_S,
-             hbm_bytes_per_s: float = PEAK_BYTES_S) -> dict:
-    """Roofline verdict for one measured launch on ``counts``: the work,
-    its compute and memory bounds, the utilisation of each peak and the
-    limiting resource (``"fp32"`` on a tie)."""
-    cost = cascade_tile_cost(counts, num_boot, w_dim)
+def multinomial_tile_cost(counts: np.ndarray, num_boot: int,
+                          w_dim: int) -> dict:
+    """The least work of one launch of the multinomial kernel on a tile.
+
+    Bin u of a row draws from the trials left after the bins before it,
+    ``ctail[u]`` of them in expectation (the row's counts sum to its
+    trials), with ``p = counts[u] / ctail[u]``; so ``trials x q`` is
+    ``min(counts[u], ctail[u] - counts[u])`` in expectation, which picks the
+    algorithm and the waiting times of an inversion draw.  A bin is reached
+    with trials left with probability at least ``1 - exp(-ctail[u])``; the
+    row's last occupied bin takes what is left without a draw.
+
+    Args: as ``cascade_tile_cost``.
+
+    Returns:
+      dict with ``hbm_bytes`` (as the cascade's: each input read once, the
+      sums written once), ``ops``, ``draws`` (binomial draws),
+      ``inversion_bins``, ``btrs_bins`` and ``philox_calls_per_replicate``
+      (all in expectation).
+    """
+    counts = np.asarray(counts, np.float64)
+    t_dim, _ = counts.shape
+    ctail = np.cumsum(counts[:, ::-1], axis=1)[:, ::-1]
+    occupied = counts > 0
+    live = np.where(occupied, -np.expm1(-ctail), 0.0)
+    drawn = occupied & (counts < ABSORB * ctail)
+    nq = np.minimum(counts, ctail - counts)
+    inversion = drawn & (nq < BTRS_MIN)
+    btrs = drawn & ~inversion
+    steps = nq + 1.0  # uniforms of an inversion draw
+    calls = np.where(inversion, np.maximum(1.0, steps / 4.0), 1.0) * drawn
+    per_draw = (calls * OPS_PHILOX_CALL
+                + np.where(inversion, steps * OPS_INVERSION_STEP,
+                           OPS_BTRS_SETUP + OPS_BTRS_TRY) * drawn)
+    per_boot = ((live * per_draw).sum()
+                + live.sum() * (OPS_PER_WEIGHT * w_dim + 1))
+    hbm_bytes = 4 * (counts.size * (1 + w_dim) + t_dim
+                     + t_dim * w_dim * num_boot)
+    return {
+        "hbm_bytes": float(hbm_bytes),
+        "ops": float(per_boot) * num_boot,
+        "draws": float((live * drawn).sum()) * num_boot,
+        "inversion_bins": int(inversion.sum()),
+        "btrs_bins": int(btrs.sum()),
+        "philox_calls_per_replicate": float((live * calls).sum()),
+    }
+
+
+def _verdict(cost: dict, measured_s: float, fp32_ops_per_s: float,
+             hbm_bytes_per_s: float) -> dict:
     t_compute = cost["ops"] / fp32_ops_per_s
     t_memory = cost["hbm_bytes"] / hbm_bytes_per_s
     bound = max(t_compute, t_memory)
     return {
         **cost,
         "measured_s": float(measured_s),
-        "useful_draws_per_s": cost["useful_draws"] / measured_s,
         "t_compute_bound_s": t_compute,
-        "t_compute_bound_first_design_s":
-            cost["ops_first_design"] / fp32_ops_per_s,
         "t_memory_bound_s": t_memory,
         "bound_s": bound,
         "fp32_utilization": t_compute / measured_s,
@@ -141,4 +201,33 @@ def roofline(counts: np.ndarray, num_boot: int, measured_s: float,
     }
 
 
-__all__ = ["cascade_tile_cost", "roofline", "PEAK_BYTES_S", "PEAK_FP32_S"]
+def roofline(counts: np.ndarray, num_boot: int, measured_s: float,
+             w_dim: int, fp32_ops_per_s: float = PEAK_FP32_S,
+             hbm_bytes_per_s: float = PEAK_BYTES_S) -> dict:
+    """Roofline verdict for one measured launch on ``counts``: the work,
+    its compute and memory bounds, the utilisation of each peak and the
+    limiting resource (``"fp32"`` on a tie)."""
+    cost = cascade_tile_cost(counts, num_boot, w_dim)
+    return {
+        **_verdict(cost, measured_s, fp32_ops_per_s, hbm_bytes_per_s),
+        "useful_draws_per_s": cost["useful_draws"] / measured_s,
+        "t_compute_bound_first_design_s":
+            cost["ops_first_design"] / fp32_ops_per_s,
+    }
+
+
+def multinomial_roofline(counts: np.ndarray, num_boot: int,
+                         measured_s: float, w_dim: int,
+                         fp32_ops_per_s: float = PEAK_FP32_S,
+                         hbm_bytes_per_s: float = PEAK_BYTES_S) -> dict:
+    """``roofline`` for one measured launch of the multinomial kernel
+    (``multinomial_tile_cost``), with ``draws_per_s``."""
+    cost = multinomial_tile_cost(counts, num_boot, w_dim)
+    return {
+        **_verdict(cost, measured_s, fp32_ops_per_s, hbm_bytes_per_s),
+        "draws_per_s": cost["draws"] / measured_s,
+    }
+
+
+__all__ = ["cascade_tile_cost", "roofline", "multinomial_tile_cost",
+           "multinomial_roofline", "PEAK_BYTES_S", "PEAK_FP32_S"]

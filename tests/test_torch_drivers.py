@@ -233,6 +233,8 @@ DRIVER_KEYS = {
 def small_env(monkeypatch, tmp_path):
     for k, v in SMALL.items():
         monkeypatch.setenv(k, v)
+    monkeypatch.setattr(kernel_bench, "MULTINOMIAL_CALLS",
+                        (("1d", 6, 300, 2), ("2d", 4, 60, 5)))
     monkeypatch.setenv("NS_CACHE", str(tmp_path / "ns.npz"))
     return tmp_path
 
@@ -256,6 +258,11 @@ def test_driver_main_on_cpu(driver, small_env, capsys):
             assert t["bound_ms"] > 0 and t["bound_by"] in ("operations",
                                                            "bytes")
             assert t["library_ms"] is None and t["plain_ms"] > 0
+        assert [(t["kind"], t["W"]) for t in out["multinomial"]] == [
+            ("1d", 2), ("2d", 5)]
+        for t in out["multinomial"]:
+            assert t["ms"] > 0 and t["chain_ms"] > 0 and t["launches"] == 0
+            assert t["bound_ms"] > 0 and t["bound_by"] == "operations"
     if driver is corr_north_star:
         assert out["finite_frac"] >= 0.95  # NaN: genes with no variance
         assert out["phases_s"]["gram_stream"] >= out["phases_s"]["upload"]

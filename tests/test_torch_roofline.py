@@ -163,3 +163,86 @@ def test_the_first_design_count_is_above_the_redesign():
         cost = t_roof.cascade_tile_cost(tile_counts(1, rows, bins), 1000,
                                         w_dim)
         assert cost["ops_first_design"] > cost["ops"] > 0
+
+
+# ---- the multinomial kernel's cost (csrc/multinomial_bootstrap.cu) --------
+
+@pytest.mark.parametrize("row, kinds", [
+    ([3.0, 27.0], "inversion"),  # 3 expected successes: 4 waiting times
+    ([300.0, 700.0], "btrs"),
+    ([36.0, 4.0], "inversion"),  # p > 0.5: min(p, 1 - p) picks inversion
+    ([0.0, 5.0, 0.0, 0.0], "none"),  # one occupied bin takes every trial
+])
+@pytest.mark.parametrize("w_dim", [1, 5])
+def test_multinomial_cost_of_one_row(row, kinds, w_dim):
+    counts = np.asarray([row], np.float32)
+    cost = t_roof.multinomial_tile_cost(counts, 100, w_dim)
+    c = np.asarray(row, np.float64)
+    ctail = np.cumsum(c[::-1])[::-1]
+    live = np.where(c > 0, 1.0 - np.exp(-ctail), 0.0)
+    first = min(c[0], ctail[0] - c[0])
+    if kinds == "none":
+        draw_ops, calls = 0.0, 0.0
+    elif kinds == "inversion":
+        calls = max(1.0, (first + 1.0) / 4.0)
+        draw_ops = calls * 40 + (first + 1.0) * 12
+    else:
+        calls = 1.0
+        draw_ops = 40 + 30 + 22
+    want = live[0] * draw_ops + live.sum() * (2 * w_dim + 1)
+    assert cost["ops"] == pytest.approx(100 * want, rel=1e-12)
+    assert cost["philox_calls_per_replicate"] == pytest.approx(
+        live[0] * calls, rel=1e-12)
+    assert cost["inversion_bins"] == (kinds == "inversion")
+    assert cost["btrs_bins"] == (kinds == "btrs")
+    assert cost["hbm_bytes"] == 4 * (len(row) * (1 + w_dim) + 1
+                                     + w_dim * 100)
+
+
+def test_multinomial_cost_counts_no_more_philox_calls_than_the_draws_take(
+        monkeypatch):
+    """On group rows of 1D and 2D shape, the kernel's plain version (the
+    same stream) makes at least the Philox calls the model counts, and not
+    twice as many: the model is a floor, and not a loose one."""
+    import torch
+
+    from memento_tpu_torch.drivers._data import multinomial_counts
+    from memento_tpu_torch.ops import philox, sampling
+
+    calls = []
+    group_words = philox.group_words
+
+    def counted(*ids):
+        calls.append(ids[0].numel())
+        return group_words(*ids)
+
+    monkeypatch.setattr(philox, "group_words", counted)
+    rng = np.random.default_rng(4)
+    for counts in (multinomial_counts(rng, 6, 2000, pair=False),
+                   multinomial_counts(rng, 6, 300, pair=True)):
+        calls.clear()
+        c = torch.as_tensor(counts)
+        sampling.fused_multinomial_sums_philox(c, torch.ones(*c.shape, 1),
+                                               c.sum(1), 400, 9)
+        made = sum(calls) / 400
+        model = t_roof.multinomial_tile_cost(counts, 400, 1)
+        assert model["philox_calls_per_replicate"] <= made \
+            < 2 * model["philox_calls_per_replicate"]
+        assert model["inversion_bins"] > 0
+
+
+def test_multinomial_roofline_follows_from_the_peaks():
+    counts = tile_counts(5, 96, 83)
+    cost = t_roof.multinomial_tile_cost(counts, 1000, 5)
+    measured = 2.8e-3
+    roof = t_roof.multinomial_roofline(counts, 1000, measured, 5)
+    t_ops = cost["ops"] / t_roof.PEAK_FP32_S
+    t_bytes = cost["hbm_bytes"] / t_roof.PEAK_BYTES_S
+    assert t_ops > t_bytes and roof["limiting_resource"] == "fp32"
+    assert roof["bound_s"] == t_ops
+    assert roof["fp32_utilization"] == t_ops / measured
+    assert roof["draws_per_s"] == cost["draws"] / measured
+    assert {k: roof[k] for k in cost} == cost
+    # the kernel's draws cost more than the cascade's table and Gaussian
+    # draws of the same tile
+    assert cost["ops"] > t_roof.cascade_tile_cost(counts, 1000, 5)["ops"]
