@@ -624,14 +624,16 @@ def main_path_tile(adata, model, tile=None):
     of the first tile of that size (phase (i)'s tiling), rebuilt from the
     pipeline state exactly as run_ht_1d / ht_1d_tile build them: counts
     ``[R*T, U]``, weights ``[R*T, U, 2]``, n_obs ``[R*T]``."""
-    from memento_tpu_torch.inference.ht import _round_up, default_tile_size
+    from memento_tpu_torch.inference.ht import (_round_up, default_tile_size,
+                                                tile_budget)
     from memento_tpu_torch.ops.compress import compress_group
 
     uns = adata.uns["memento"]
     groups = uns["groups"]
     g = adata.n_vars
     if tile is None:
-        tile = min(default_tile_size(len(groups), NUM_BOOT), _round_up(g, 64))
+        tile = min(default_tile_size(len(groups), NUM_BOOT,
+                                     tile_budget("cuda")), _round_up(g, 64))
         if tile < g:
             raise AssertionError(
                 f"main path ran {-(-g // tile)} tiles; expected 1")
@@ -670,7 +672,7 @@ def main_path_tile_2d(adata, model, idx1, idx2, device, tile=None):
     import torch
 
     from memento_tpu_torch.inference.ht import (MAX_PAIR_TILE, _round_up,
-                                                default_tile_size)
+                                                default_tile_size, tile_budget)
     from memento_tpu_torch.ops.bootstrap import pair_weights
     from memento_tpu_torch.ops.compress import compress_pairs
 
@@ -683,7 +685,9 @@ def main_path_tile_2d(adata, model, idx1, idx2, device, tile=None):
     uns = adata.uns["memento"]
     groups = uns["groups"]
     if tile is None:
-        tile = min(default_tile_size(len(groups), NUM_BOOT), MAX_PAIR_TILE,
+        tile = min(default_tile_size(len(groups), NUM_BOOT,
+                                     tile_budget(device)),
+                   MAX_PAIR_TILE,
                    _round_up(len(idx1), 64))
         if tile < len(idx1):
             raise AssertionError(
@@ -1396,8 +1400,6 @@ def north_star_scale(mtt, dev, card, seed):
 
     from memento_tpu_torch.drivers import (_data, _report, eqtl_north_star,
                                            north_star, north_star_2d)
-    from memento_tpu_torch.inference.ht import (MAX_PAIR_TILE, _round_up,
-                                                default_tile_size)
     from memento_tpu_torch.ops.corr import cov_sparse_pairs
     from memento_tpu_torch.ops.estimators import HYPER_RELATIVE
     from memento_tpu_torch.utils import profiling
@@ -1408,6 +1410,14 @@ def north_star_scale(mtt, dev, card, seed):
     def phase_table():
         return {name: round(v["total_s"], 3)
                 for name, v in profiling.timings().items()}
+
+    def tiling(label):
+        """(tiles, tile size) the last run used: its ``<label>.launch``
+        spans (the warm-up launches outside them) and their rows ``T``."""
+        sizes = [sp["attrs"]["T"] for sp in profiling.spans()
+                 if sp["name"] == f"{label}.launch"]
+        require(len(set(sizes)) == 1, f"{label}: tiles of {set(sizes)} rows")
+        return len(sizes), sizes[0]
 
     t0 = time.perf_counter()
     X = _data.north_star_device(NS_CELLS, NS_GENES, seed=seed, device=dev)
@@ -1430,8 +1440,7 @@ def north_star_scale(mtt, dev, card, seed):
     ht_phases = phase_table()
     rec = north_star.record({"genes": NS_GENES, "num_boot": NS_BOOT_1D,
                              "tile": None}, adata, result, steady, phases)
-    tile_1d = default_tile_size(2, NS_BOOT_1D)
-    n_tiles = -(-NS_GENES // tile_1d)
+    n_tiles, tile_1d = tiling("ht1d")
     require(rec["config"]["genes_tested"] == NS_GENES,
             f"(k1) tested {rec['config']['genes_tested']} genes")
     null_gates("(k1) de_pval", rec)
@@ -1459,9 +1468,7 @@ def north_star_scale(mtt, dev, card, seed):
     uns = adata.uns["memento"]["2d_moments"]
     idx1, idx2 = uns["gene_idx_1"], uns["gene_idx_2"]
     n_tested = len(result2)
-    tile_2d = min(default_tile_size(2, NS_BOOT_2D), MAX_PAIR_TILE,
-                  _round_up(n_tested, 64))
-    n_tiles = -(-n_tested // tile_2d)
+    n_tiles, tile_2d = tiling("ht2d")
     require(n_tested >= 0.99 * NS_PAIRS, f"(k2) tested {n_tested} pairs")
     null_gates("(k2) corr_pval", rec)
     require(info["cascade_launches"] == n_tiles,

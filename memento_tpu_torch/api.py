@@ -242,13 +242,18 @@ def create_groups(adata, label_columns, label_delimiter="^", inplace=True):
         uns["q"] = np.asarray(adata.obs[uns["q_column"]])
 
     with profiling.phase("create_groups.split"):
-        X_csc = adata.X.tocsc()
-        group_masks = {g: labels == g for g in uns["groups"]}
-        uns["group_cells"] = {g: X_csc[m, :] for g, m in group_masks.items()}
-        uns["group_q"] = {
-            g: float(np.asarray(uns["q"][m], dtype=np.float64).mean())
-            for g, m in group_masks.items()
-        }
+        # each group's rows gathered from the CSR matrix, in their order:
+        # a pass over the group's own nonzeros (a row mask of a CSC matrix
+        # passes over all of them, once a group)
+        names, code = np.unique(labels, return_inverse=True)
+        order = np.argsort(code, kind="stable")
+        bounds = np.searchsorted(code[order], np.arange(len(names) + 1))
+        rows = {g: order[lo:hi]
+                for g, lo, hi in zip(names, bounds[:-1], bounds[1:])}
+        X = adata.X.tocsr()
+        q = np.asarray(uns["q"], dtype=np.float64)
+        uns["group_cells"] = {g: X[rows[g]].tocsc() for g in uns["groups"]}
+        uns["group_q"] = {g: float(q[rows[g]].mean()) for g in uns["groups"]}
     if not inplace:
         return adata
 
@@ -484,13 +489,15 @@ def _ckpt_meta(uns, item_key: str, seed, num_boot, resampling, approx):
 def _per_item_treatment(treatment, treatment_for_item, keys, n_groups):
     """Zero-padded per-item treatments ``[I, R, Kmax]`` and the number of
     tested columns of each item, from ``treatment_for_item[key]`` (the
-    treatment column names of that gene or gene pair)."""
+    treatment column names of that gene or gene pair); a key or a column
+    name that is not there raises ``KeyError`` naming it."""
     values, names = _table_values(treatment)
+    column = {name: j for j, name in enumerate(names)}
     kmax = max(len(v) for v in treatment_for_item.values())
     tens = np.zeros((len(keys), n_groups, kmax))
     nt = np.zeros(len(keys), dtype=int)
     for i, key in enumerate(keys):
-        cols = [names.index(c) for c in treatment_for_item[key]]
+        cols = [column[c] for c in treatment_for_item[key]]
         nt[i] = len(cols)
         tens[i, :, :nt[i]] = values[:, cols]
     return tens, nt
@@ -591,13 +598,15 @@ def ht_1d_moments(
                           for grp in groups])
     q = np.array([uns["group_q"][grp] for grp in groups])
     cov_values, _ = _table_values(covariate)
-    treat_values, tx_names = _table_values(treatment)
-    if treatment_for_gene is None:
-        treat_arg = treat_values
-        nt_per_gene = np.full(g, len(tx_names))
-    else:
-        treat_arg, nt_per_gene = _per_item_treatment(
-            treatment, treatment_for_gene, gene_names, len(groups))
+    with profiling.phase("ht_1d_moments.treatment"):
+        if treatment_for_gene is None:
+            treat_arg, tx_names = _table_values(treatment)
+            nt_per_gene = np.full(g, len(tx_names))
+        else:
+            treat_arg, nt_per_gene = _per_item_treatment(
+                treatment, treatment_for_gene, gene_names, len(groups))
+    profiling.count("ht1d.treat_cols", g * treat_arg.shape[-1])
+    profiling.count("ht1d.tests", int(nt_per_gene.sum()))
 
     def run_gene_block(start, stop):
         sl = slice(start, stop)

@@ -11,6 +11,13 @@ bootstrap resampling with GEV refinement, tiles of 1,024 genes, through
 ``inference/ht.py::run_ht_1d``.  Prints one JSON line (``_report.py``);
 only the real (not padded) treatment columns count as tests.
 
+Its two groups, split by cell index, are a kernel-scale shape and not the
+deployment: memento's eQTL scan takes each donor as a group, per-gene SNP
+treatments after donor covariates, through ``api.ht_1d_moments(...,
+treatment_for_gene=...)``.  That deployment (120 donors, 6 cell types,
+B = 5,000) is the benchmark's cell ``eqtl-donors``
+(``benchmarks/kinds/eqtl_sweep_1d.py``).
+
 Environment knobs: EQTL_GENES, EQTL_BOOT, EQTL_KT, EQTL_TILE, NS_CELLS,
 NS_GENES, NS_CACHE, NS_DRAW (shared with ``north_star``).
 """

@@ -173,6 +173,11 @@ def ht_1d_tile(
     materialized sampler), seeded by (0, group): on the card the same law
     as the kernel's, not the same draws.
 
+    Counters (``utils/profiling``): ``ht1d.tiles``, each call;
+    ``ht1d.group_calls``, each (group, chunk) draw of the per-group
+    samplers.  The two meta-regressions are the device span
+    ``ht1d.regress``.
+
     Returns a dict of ``[T, Kt]`` tensors (observed coefficients, bootstrap
     SEs, first-stage p-values, GEV flags) and the full coefficient tensors
     ``[T, Kt, B+1]`` for the host tail refinement.
@@ -195,6 +200,7 @@ def ht_1d_tile(
     treatment = f32(treatment)
 
     r = values.shape[0]
+    profiling.count("ht1d.tiles")
     if custom_1d is not None:
         groups = [bootstrap_1d_custom(
             custom_1d, values[ri], counts[ri], inv_sf[ri], inv_sf_sq[ri],
@@ -202,6 +208,8 @@ def ht_1d_tile(
             for ri in range(r)]
         boot_mean_raw, boot_var_raw = (torch.stack(x) for x in zip(*groups))
     elif sampler in _CHUNKED:
+        profiling.count("ht1d.group_calls",
+                        r * max(1, -(-num_boot // boot_chunk)))
         boot_mean_raw, boot_var_raw = _chunked(
             num_boot, boot_chunk, r, lambda ri, bc, at: bootstrap_1d(
                 values[ri], counts[ri], inv_sf[ri], inv_sf_sq[ri], n_obs[ri],
@@ -254,8 +262,9 @@ def ht_1d_tile(
                             resample_rep=resample_rep, gen=gen,
                             one_sample_g=os_vec)
 
-    mean_coef = regress(boot_mean)
-    var_coef = regress(boot_var)
+    with profiling.device_phase("ht1d.regress", dev):
+        mean_coef = regress(boot_mean)
+        var_coef = regress(boot_var)
 
     def finish(coef):
         pval, needs = asl_counting(coef, resampling, approx)
@@ -480,10 +489,31 @@ class _DeferredGEV:
             self._pool.shutdown(wait=True)
 
 
+# Float32 elements a tile's buffers may take off a CUDA card: 2**28 (1 GiB),
+# the JAX package's fixed budget.
+CPU_TILE_BUDGET = 1 << 28
+# Share of a CUDA card's total memory that one tile's buffers may take; the
+# rest holds the tiles in flight, the transfers and the caller's tensors.
+TILE_MEMORY_SHARE = 0.5
+
+
+def tile_budget(device) -> int:
+    """Float32 elements one tile's buffers may take on ``device``: on a CUDA
+    card ``TILE_MEMORY_SHARE`` of its total memory, so that the tiling (and
+    with it each tile's seed) depends on the card and not on what else
+    holds memory at the call; elsewhere ``CPU_TILE_BUDGET``."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return CPU_TILE_BUDGET
+    total = torch.cuda.get_device_properties(dev).total_memory
+    return int(TILE_MEMORY_SHARE * total) // 4
+
+
 def default_tile_size(r: int, num_boot: int,
-                      budget_elems: int = 1 << 28) -> int:
+                      budget_elems: int = CPU_TILE_BUDGET) -> int:
     """Gene-tile size: peak memory is about a dozen ``[R, T, B]`` float
-    buffers, so the tile can be large."""
+    buffers within ``budget_elems`` (``tile_budget`` of the device), in
+    multiples of 64 from 64 to 8,192."""
     t = budget_elems // max(1, r * num_boot * 12)
     t = max(64, min(8192, t))
     return (t // 64) * 64
@@ -634,6 +664,21 @@ def _tile_devices(mesh, device, nproc: int):
 
         device = local_device()
     return (resolve_device(device),)
+
+
+def _resolve_tile(r: int, num_boot: int, devices, nproc: int,
+                  cap: int) -> int:
+    """The default tile size, at most ``cap``, within the smallest budget of
+    ``devices``; with ``nproc`` > 1 the smallest over the processes, so
+    that every process cuts the same tiles."""
+    tile = min(default_tile_size(r, num_boot,
+                                 min(tile_budget(dev) for dev in devices)),
+               cap)
+    if nproc > 1:
+        from ..parallel.distributed import min_over_processes
+
+        tile = min_over_processes(tile)
+    return tile
 
 
 def _names(devices) -> str:
@@ -872,7 +917,8 @@ def run_ht_1d(
     one_sample = _one_sample_flags(treatment, per_gene_treatment)
 
     if tile_size is None:
-        tile_size = min(default_tile_size(r, num_boot), _round_up(g, 64))
+        tile_size = _resolve_tile(r, num_boot, devices, nproc,
+                                  _round_up(g, 64))
 
     vdtype = _value_dtype(_global_value_max(compressed, groups))
     cdtype = _count_dtype(_max_combo_count(compressed, approx_sf))
@@ -996,8 +1042,8 @@ def run_ht_2d(
     one_sample = _one_sample_flags(treatment, per_pair_treatment)
 
     if tile_size is None:
-        tile_size = min(default_tile_size(r, num_boot), MAX_PAIR_TILE,
-                        _round_up(p, 64))
+        tile_size = _resolve_tile(r, num_boot, devices, nproc,
+                                  min(MAX_PAIR_TILE, _round_up(p, 64)))
 
     vdtype = _value_dtype(_global_value_max(compressed_pairs, groups,
                                             ("values_1", "values_2")))
@@ -1057,4 +1103,5 @@ def run_ht_2d(
 
 
 __all__ = ["fill_invalid", "ht_1d_tile", "ht_2d_tile", "run_ht_1d",
-           "run_ht_2d", "default_tile_size", "MAX_PAIR_TILE"]
+           "run_ht_2d", "default_tile_size", "tile_budget", "MAX_PAIR_TILE",
+           "CPU_TILE_BUDGET", "TILE_MEMORY_SHARE"]

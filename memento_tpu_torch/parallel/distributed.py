@@ -122,6 +122,15 @@ def process_tile_starts(starts, process_id: Optional[int] = None,
     return list(starts)[pid::nproc]
 
 
+def min_over_processes(value: int) -> int:
+    """The smallest of every process's ``value`` (``value`` itself outside
+    a process group)."""
+    buf = torch.tensor([int(value)], dtype=torch.int64)
+    if process_count() > 1:
+        dist.all_reduce(buf, op=dist.ReduceOp.MIN)
+    return int(buf.item())
+
+
 def allreduce_hostsums(*partials: np.ndarray,
                        precision: str = "high") -> Tuple[np.ndarray, ...]:
     """Sum equally shaped host arrays over all processes; every process
@@ -235,6 +244,7 @@ __all__ = [
     "local_device",
     "process_row_range",
     "process_tile_starts",
+    "min_over_processes",
     "merge_disjoint_rows",
     "local_data_mesh",
     "allreduce_hostsums",
