@@ -81,6 +81,15 @@ Phases, one line each:
       against the ``torch.binomial`` chain it replaced (B = 2000); its time,
       the launch's alone and the chain's at B = 1000 beside the bound
       (``memento_tpu_torch.utils.roofline.multinomial_roofline``);
+  (m) the GEV refit kernel (``csrc/gev_refine.cu``) on the flagged rows of
+      (c)'s 1D tile and of (e)'s 2D tile (the rows the main paths handed to
+      the refit), against the numpy path (``inference/gev.py::
+      gev_refine_batch``) on the same rows: the share of (row, side) with
+      the same accepted stage, the largest relative p-value difference
+      where the stages agree, the largest in decades, the fits of both,
+      a relaunch bit for bit; the kernel's time (the launch with its sort,
+      and the settling with the host's rows) beside the numpy path's and
+      the bound (``memento_tpu_torch.utils.roofline.gev_refine_roofline``);
   (j) the main paths under the device trace: one ``ht_1d_moments`` and one
       ``ht_2d_moments`` at (c)'s and (e)'s settings on their state inside
       ``profiling.device_trace`` (Chrome traces in ``chiprun_out/traces/``),
@@ -847,6 +856,114 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+class FlaggedRows:
+    """While open, keeps a copy of the rows each ``_DeferredGEV.submit``
+    receives (the flagged rows of every tile), with their resampling."""
+
+    def __init__(self, ht):
+        self.ht = ht
+        self.rows = []
+
+    def __enter__(self):
+        original = self.original = self.ht._DeferredGEV.submit
+        kept = self.rows
+
+        def submit(worker, rows_dev, gi, gk, out_pval, resampling):
+            kept.append((rows_dev.clone(), resampling))
+            return original(worker, rows_dev, gi, gk, out_pval, resampling)
+
+        self.ht._DeferredGEV.submit = submit
+        return self
+
+    def __exit__(self, *exc):
+        self.ht._DeferredGEV.submit = self.original
+        return False
+
+
+# phase (m): what the card's GEV refits must reach against numpy's on the
+# same rows (tests/test_torch_gev_kernel.py's limits)
+# same_stage_share; every row where the stages agree within GEV_P_RTOL_ALL
+# (a Nelder-Mead step decided by two nearly equal likelihoods ends the fit
+# elsewhere within its 1e-5 convergence test; the share of rows within
+# GEV_P_RTOL is reported, not held: one such row among the main paths' ~100
+# is a share of 1%)
+GEV_SAME_STAGE_SHARE = 0.99
+GEV_P_RTOL = 1e-6
+GEV_P_RTOL_ALL = 1e-4
+GEV_MAX_DECADES = 1.0
+
+
+def gev_kernel_check(kept, label):
+    """Phase (m) on the rows a main path handed to the refit: the kernel
+    against the numpy path on the same rows, its relaunch, its time and
+    the numpy path's, and its roofline.  Returns the kernels line's
+    numbers."""
+    import torch
+
+    from memento_tpu_torch.inference import gev
+    from memento_tpu_torch.ops import cuda_kernels
+    from memento_tpu_torch.utils import profiling
+    from memento_tpu_torch.utils.roofline import gev_refine_roofline
+
+    if not kept:
+        raise AssertionError(f"{label}: the main path refit no row")
+    resampling = kept[0][1]
+    rows = torch.cat([r for r, _ in kept])
+    m, num_boot = rows.shape[0], rows.shape[1] - 1
+    fallbacks = np.full(m, 1.0 / (num_boot + 1))
+    out = gev.launch_refine(rows, resampling)
+    again = gev.launch_refine(rows, resampling)
+    torch.cuda.synchronize()
+    if not torch.equal(out.view(torch.int64), again.view(torch.int64)):
+        raise AssertionError(f"{label}: two launches on one input differ")
+    host = out.cpu().numpy()
+    profiling.reset_timings()
+    t0 = time.perf_counter()
+    got, acc_k = gev.settle(host, rows, fallbacks, resampling,
+                            counter="card")
+    settle_ms = 1e3 * (time.perf_counter() - t0)
+    stats, nulls = gev.split_rows(rows.cpu().numpy(), resampling)
+    acc_n = np.zeros((m, 2), np.int64)
+    t0 = time.perf_counter()
+    want = gev.gev_refine_batch(stats, nulls, fallbacks, counter="numpy",
+                                accepted=acc_n)
+    numpy_ms = 1e3 * (time.perf_counter() - t0)
+    fits = profiling.counters()
+    same = acc_k == acc_n
+    rows_same = same.all(1)
+    rel = np.abs(got - want) / np.abs(want)
+    decades = np.abs(np.log10(got) - np.log10(want))
+    ms = time_ms(lambda: gev.launch_refine(rows, resampling), reps=5)
+    tail_len = min(gev.TAIL_SCHEDULE[0], num_boot)
+    roof = gev_refine_roofline(host[:, 4].sum(), m, tail_len, ms / 1e3)
+    rec = {
+        "shape": {"rows": m, "B": num_boot, "launches": len(kept),
+                  "resampling": resampling},
+        "status": np.bincount(host[:, 1].astype(int), minlength=3).tolist(),
+        "same_stage_share": float(same.mean()),
+        "p_rtol_share": float((rel[rows_same] <= GEV_P_RTOL).mean())
+        if rows_same.any() else 1.0,
+        "p_rtol_max": float(rel[rows_same].max()) if rows_same.any() else 0.0,
+        "max_decades": float(decades.max()),
+        "fits": {"card": fits.get("card", 0), "numpy": fits.get("numpy", 0)},
+        "ms": ms,
+        "settle_ms": settle_ms,
+        "plain_ms": numpy_ms,
+        "bound_ms": 1e3 * roof["bound_s"],
+        "bound_by": roof["limiting_resource"],
+        "roofline_share": roof["bound_s"] / roof["measured_s"],
+        "values_fitted": roof["values_fitted"],
+        "resources": cuda_kernels.gev_resources(),
+    }
+    if not (rec["same_stage_share"] >= GEV_SAME_STAGE_SHARE
+            and rec["p_rtol_max"] <= GEV_P_RTOL_ALL
+            and rec["max_decades"] <= GEV_MAX_DECADES
+            and rec["fits"]["card"] == rec["fits"]["numpy"]):
+        raise AssertionError(f"{label}: the kernel disagrees with the numpy "
+                             f"path: {rec}")
+    return rec
+
+
 def conservation_limit(n_max: float, u_max: int) -> float:
     """How far a float32 weight-1 sum may lie from N: both versions add up
     to ``u_max`` draws into a running sum near N, each addition rounds by up
@@ -1592,6 +1709,7 @@ def main() -> int:
     import memento_tpu_torch as mtt
     from memento_tpu_torch import native
     from memento_tpu_torch.native import _build as native_build
+    from memento_tpu_torch.inference import ht
     from memento_tpu_torch.ops import cuda_kernels, kernel_build, sampling
     from memento_tpu_torch.ops.estimators import HYPER_RELATIVE
     from memento_tpu_torch.utils import profiling
@@ -1624,9 +1742,13 @@ def main() -> int:
         if ptxas[w_dim]["spill_store_bytes"] or \
                 ptxas[w_dim]["spill_load_bytes"]:
             raise AssertionError(f"W={w_dim} instance spills: {ptxas[w_dim]}")
+    gev_use = {**cuda_kernels.gev_ptxas(), **cuda_kernels.gev_resources()}
+    if gev_use["spill_store_bytes"] or gev_use["spill_load_bytes"]:
+        raise AssertionError(f"gev_refine spills: {gev_use}")
     log(f"(a) card: {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | build {build_s:.2f} s | ptxas and runtime, "
-        f"per W instance: {json.dumps(instances)} | {host_build}")
+        f"per W instance: {json.dumps(instances)}; gev_refine "
+        f"{json.dumps(gev_use)} | {host_build}")
 
     # ---- (c) the 1D main path ---------------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -1641,13 +1763,16 @@ def main() -> int:
     cuda_kernels.reset_launches()
     native.reset_calls()
     profiling.reset_timings()
-    result, secs = run_api(mtt, adata, dev, NUM_BOOT)
+    with FlaggedRows(ht) as flagged_1d:
+        result, secs = run_api(mtt, adata, dev, NUM_BOOT)
     launches_1d = dict(cuda_kernels.LAUNCHES)
     calls_1d = check_native_calls(native, NATIVE_1D, "the 1D main path")
     phases = {name: round(v["total_s"], 3)
               for name, v in profiling.timings().items()}
-    if launches_1d["cascade_bootstrap"] <= 0:
-        raise AssertionError(f"main path launched no kernel: {launches_1d}")
+    if launches_1d["cascade_bootstrap"] <= 0 or \
+            launches_1d["gev_refine"] != len(flagged_1d.rows):
+        raise AssertionError(f"main path launched no kernel, or not one GEV "
+                             f"launch a refit: {launches_1d}")
 
     tested = result["gene"]
     if len(tested) < 0.8 * N_GENES or result.shape[1] != 8:
@@ -1698,8 +1823,12 @@ def main() -> int:
     cuda_kernels.reset_launches()
     native.reset_calls()
     profiling.reset_timings()
-    result2, secs2 = run_api_2d(mtt, adata, dev, idx1, idx2, NUM_BOOT)
+    with FlaggedRows(ht) as flagged_2d:
+        result2, secs2 = run_api_2d(mtt, adata, dev, idx1, idx2, NUM_BOOT)
     launches_2d = dict(cuda_kernels.LAUNCHES)
+    if launches_2d["gev_refine"] != len(flagged_2d.rows):
+        raise AssertionError(f"2D main path: not one GEV launch a refit: "
+                             f"{launches_2d}")
     calls_2d = check_native_calls(native, NATIVE_2D, "the 2D main path")
     by_w = dict(cuda_kernels.LAUNCHES_BY_W)
     phases2 = {name: round(v["total_s"], 3)
@@ -2008,6 +2137,30 @@ def main() -> int:
             f"{rec['philox_calls_per_replicate']:.1f} Philox calls a "
             f"replicate | {card}")
 
+    # ---- (m) the GEV refit kernel on the main paths' flagged rows ---------
+    gev_checks = {}
+    for key, kept, what in (("1d", flagged_1d.rows, "1D"),
+                            ("2d", flagged_2d.rows, "2D")):
+        rec = gev_checks[key] = gev_kernel_check(kept, f"(m) {what}")
+        log(f"(m) gev_refine on the {what} main path's flagged rows "
+            f"[{rec['shape']['rows']} rows from {rec['shape']['launches']} "
+            f"launches, B={rec['shape']['B']}, "
+            f"{rec['shape']['resampling']}]: status (kept, refined, host) "
+            f"{rec['status']} | against the numpy path on the same rows: "
+            f"same accepted stage on {rec['same_stage_share']:.4f} of (row, "
+            f"side) (limit {GEV_SAME_STAGE_SHARE}), where they agree "
+            f"{rec['p_rtol_share']:.4f} of the rows within {GEV_P_RTOL} "
+            f"and all within {rec['p_rtol_max']:.3g} (limit "
+            f"{GEV_P_RTOL_ALL}), largest "
+            f"{rec['max_decades']:.3g} decades, fits "
+            f"{json.dumps(rec['fits'])} | relaunch bit-identical | kernel "
+            f"{rec['ms']:.3f} ms (the launch with its sort; the settling "
+            f"with the host's rows {rec['settle_ms']:.3f} ms) | numpy "
+            f"{rec['plain_ms']:.1f} ms | bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}), {rec['roofline_share']:.4f} of the bound "
+            f"reached, {rec['values_fitted']:.4g} values fitted | "
+            f"{json.dumps(rec['resources'])} | {card}")
+
     # ---- (j) the main paths under the device trace --------------------------
     t_j = time.perf_counter()
     traces = traced_paths(mtt, adata, dev, result, result2, tiles["1d"],
@@ -2096,7 +2249,21 @@ def main() -> int:
         **multinomial["1d"],
         "W5": multinomial["2d"],
     }
-    print(json.dumps({"kernels": [kernel, kernel_mn]}))
+    # the GEV refit kernel: the 1D path's flagged rows, "2d" the 2D path's
+    kernel_gev = {
+        "name": "gev_refine",
+        "route": "cuda",
+        "source": "memento_tpu_torch/csrc/gev_refine.cu",
+        "replaces": "none: the JAX package refits in numpy "
+                    "(memento_tpu/inference/gev.py::gev_refine_batch)",
+        "launches": launches_1d["gev_refine"] + launches_2d["gev_refine"],
+        "launches_by_path": {"1d": launches_1d["gev_refine"],
+                             "2d": launches_2d["gev_refine"]},
+        "library_ms": None,
+        **gev_checks["1d"],
+        "2d": gev_checks["2d"],
+    }
+    print(json.dumps({"kernels": [kernel, kernel_mn, kernel_gev]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

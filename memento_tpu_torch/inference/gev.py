@@ -14,15 +14,25 @@ the scaled tail CDF/SF.  The refits run vectorized over all flagged rows:
 
 ``asl.gev_refine`` (serial, scipy) is the oracle and takes rows with
 non-finite entries.
+
+Rows on a CUDA card are refit by ``csrc/gev_refine.cu`` instead, one launch
+per tile's flagged rows (``launch_refine``), to the same procedure in
+float64.  Its KS gate compares D with two bounds per tail length
+(``ks_gate_bounds``) in place of ``kstwo.sf``; a row whose D falls between
+them, or that holds a non-finite entry, is left to this module's numpy
+path (``settle``).
 """
 
 from __future__ import annotations
 
+import functools
+import warnings
 from typing import Optional
 
 import numpy as np
 import scipy.special as sspec
 import scipy.stats as sstats
+import torch
 
 from ..utils import profiling
 from .asl import gev_refine
@@ -35,6 +45,13 @@ TAIL_SCHEDULE = tuple(range(300, 50, -30))  # 300, 270, ..., 60
 _WARNED_SMALL_B = False
 _GUMBEL_EPS = 1e-7
 _EULER = 0.5772156649015329
+
+# Half-width of the kernel's KS guard band, relative to the critical value
+# of D: a row whose D on the card falls this close to it is decided on the
+# host.  The card's fits agree with numpy's to about 1e-12 relative.
+KS_GUARD = 2e-8
+# a row's status in the kernel's output (``launch_refine``)
+FALLBACK, REFINED, HOST = 0, 1, 2
 
 
 # ---------------------------------------------------------------------------
@@ -262,13 +279,14 @@ def _one_side(sorted_null: np.ndarray, points: np.ndarray, side: str,
       counter: ``profiling`` counter that each stage adds its rows to.
 
     Returns:
-      (value ``[M]`` scaled tail probability, resolved ``[M]`` bool).
+      (value ``[M]`` scaled tail probability, the accepted stage ``[M]``:
+      1-based, 0 if the side did not resolve).
     """
     m, b = sorted_null.shape
     value = np.zeros(m)
-    resolved = np.zeros(m, bool)
+    stage = np.zeros(m, np.int64)
     unres = np.arange(m)
-    for n_exec in TAIL_SCHEDULE:
+    for si, n_exec in enumerate(TAIL_SCHEDULE):
         if unres.size == 0:
             break
         if counter is not None:
@@ -289,14 +307,35 @@ def _one_side(sorted_null: np.ndarray, points: np.ndarray, side: str,
                 val = gev_sf(pts, pa[:, 0], pa[:, 1], pa[:, 2])
             # the reference scales by n_exec/B even when the slice clipped
             value[rows] = (n_exec / b) * val
-            resolved[rows] = True
+            stage[rows] = si + 1
             unres = unres[~accept]
-    return value, resolved
+    return value, stage
+
+
+def _warn_small_b(num_boot: int) -> None:
+    global _WARNED_SMALL_B
+    if num_boot < TAIL_SCHEDULE[0] and not _WARNED_SMALL_B:
+        # The schedule's "tail" is then the (clipped) whole null and the
+        # reference's n_exec/B scaling exceeds 1 — the refinement is
+        # nonsensical at this B (ref hypothesis_test.py:103-121 has the same
+        # behavior silently).  Keep the bug-compatible numbers, but warn
+        # ONCE per process — the tiled HT paths call this per tile (from the
+        # deferred worker), and under an "always"/"error" warning filter the
+        # repeat would fire for every tile of a long run.
+        _WARNED_SMALL_B = True
+        warnings.warn(
+            f"GEV tail refinement with num_boot={num_boot} < "
+            f"{TAIL_SCHEDULE[0]}: the tail slice clips to the whole null "
+            "and the reference's n_exec/B scale factor exceeds 1; refined "
+            "p-values at this B are unreliable — use num_boot >= 300 or "
+            "approx=True",
+            RuntimeWarning, stacklevel=3)
 
 
 def gev_refine_batch(stats: np.ndarray, nulls: np.ndarray,
                      fallbacks: np.ndarray, nm_iters: int = 150,
-                     counter: Optional[str] = None) -> np.ndarray:
+                     counter: Optional[str] = None,
+                     accepted: Optional[np.ndarray] = None) -> np.ndarray:
     """Reference GEV refinement for many tests at once.
 
     Args:
@@ -305,6 +344,9 @@ def gev_refine_batch(stats: np.ndarray, nulls: np.ndarray,
       fallbacks: ``[M]`` counting p-values used when fitting fails.
       counter: ``profiling`` counter of the rows fitted, summed over the
         tail schedule's stages and both sides.
+      accepted: an ``[M, 2]`` integer array to fill with each row's accepted
+        stage on the left and on the right (1-based, 0 if none or if the
+        side was not fitted; rows with non-finite entries stay 0).
 
     Returns:
       ``[M]`` refined p-values.
@@ -315,25 +357,7 @@ def gev_refine_batch(stats: np.ndarray, nulls: np.ndarray,
     m = stats.shape[0]
     if m == 0:
         return out
-    global _WARNED_SMALL_B
-    if nulls.shape[1] < TAIL_SCHEDULE[0] and not _WARNED_SMALL_B:
-        # The schedule's "tail" is then the (clipped) whole null and the
-        # reference's n_exec/B scaling exceeds 1 — the refinement is
-        # nonsensical at this B (ref hypothesis_test.py:103-121 has the same
-        # behavior silently).  Keep the bug-compatible numbers, but warn
-        # ONCE per process — the tiled HT paths call this per tile (from the
-        # deferred worker), and under an "always"/"error" warning filter the
-        # repeat would fire for every tile of a long run.
-        import warnings
-
-        _WARNED_SMALL_B = True
-        warnings.warn(
-            f"GEV tail refinement with num_boot={nulls.shape[1]} < "
-            f"{TAIL_SCHEDULE[0]}: the tail slice clips to the whole null "
-            "and the reference's n_exec/B scale factor exceeds 1; refined "
-            "p-values at this B are unreliable — use num_boot >= 300 or "
-            "approx=True",
-            RuntimeWarning, stacklevel=2)
+    _warn_small_b(nulls.shape[1])
 
     finite = np.isfinite(nulls).all(axis=1) & np.isfinite(stats)
     # rows with non-finite entries take the serial scipy path (rare; the
@@ -348,20 +372,147 @@ def gev_refine_batch(stats: np.ndarray, nulls: np.ndarray,
     sorted_null = np.sort(nulls[idx], axis=1)
     abs_stat = np.abs(stats[idx])
 
-    left_val, left_ok = _one_side(sorted_null, -abs_stat, "left", nm_iters,
-                                  counter)
+    left_val, left_stage = _one_side(sorted_null, -abs_stat, "left", nm_iters,
+                                     counter)
+    left_ok = left_stage > 0
     # the reference attempts the right tail only when the left succeeded
     # and falls back when either side fails
     right_val = np.zeros(idx.size)
-    right_ok = np.zeros(idx.size, bool)
+    right_stage = np.zeros(idx.size, np.int64)
     if left_ok.any():
-        rv, rk = _one_side(sorted_null[left_ok], abs_stat[left_ok], "right",
-                           nm_iters, counter)
-        right_val[left_ok] = rv
-        right_ok[left_ok] = rk
-    both = left_ok & right_ok
+        right_val[left_ok], right_stage[left_ok] = _one_side(
+            sorted_null[left_ok], abs_stat[left_ok], "right", nm_iters,
+            counter)
+    both = left_ok & (right_stage > 0)
     out[idx[both]] = left_val[both] + right_val[both]
+    if accepted is not None:
+        accepted[idx, 0] = left_stage
+        accepted[idx, 1] = right_stage
     return out
+
+
+def split_rows(rows: np.ndarray, resampling: str):
+    """``(stats [M], nulls [M, B])`` float64 of coefficient rows ``[M,
+    B + 1]`` (the statistic, then its replicates): the replicates re-centred
+    on the statistic for ``resampling="bootstrap"``."""
+    rows = np.asarray(rows).astype(np.float64)
+    stats = rows[:, 0]
+    nulls = rows[:, 1:]
+    if resampling == "bootstrap":
+        nulls = nulls - stats[:, None]
+    return stats, nulls
+
+
+# ---------------------------------------------------------------------------
+# the same procedure on a CUDA card (csrc/gev_refine.cu)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def ks_gate_bounds(length: int) -> tuple:
+    """``(accept_d, reject_d)``: the kernel's KS gate at tail length
+    ``length``.  ``kstwo.sf(D, length) > KS_GATE`` holds at ``accept_d``
+    and fails at ``reject_d``, so (``kstwo.sf`` falls with D) for every D
+    at or below the one and at or above the other; between them, a band
+    ``KS_GUARD`` wide on each side of ``kstwo.isf`` (widened until both
+    ends hold), the host decides."""
+    crit = float(sstats.kstwo.isf(KS_GATE, length))
+    width = KS_GUARD
+    while width < 1e-3:
+        lo, hi = crit * (1.0 - width), crit * (1.0 + width)
+        if sstats.kstwo.sf(lo, length) > KS_GATE >= sstats.kstwo.sf(hi,
+                                                                     length):
+            return lo, hi
+        width *= 2.0
+    raise RuntimeError(f"no KS gate bounds at L={length} around {crit}")
+
+
+def ks_gate(d: float, length: int) -> int:
+    """The kernel's KS gate on one D: ``REFINED`` (passes), ``FALLBACK``
+    (fails; so does a NaN) or ``HOST`` (the host decides)."""
+    accept_d, reject_d = ks_gate_bounds(length)
+    if np.isnan(d) or d >= reject_d:
+        return FALLBACK
+    return REFINED if d <= accept_d else HOST
+
+
+def kernel_schedule(num_boot: int) -> np.ndarray:
+    """The kernel's ``schedule``: per stage of ``TAIL_SCHEDULE`` n_exec,
+    L = min(n_exec, B), the KS gate's two bounds at L and n_exec / B; then
+    numpy's log(2) / log(3) and log(2) (``pwm_start``'s constants)."""
+    lengths = [min(n, num_boot) for n in TAIL_SCHEDULE]
+    bounds = [ks_gate_bounds(n) for n in lengths]
+    return np.array([*TAIL_SCHEDULE, *lengths, *(b[0] for b in bounds),
+                     *(b[1] for b in bounds),
+                     *(n / num_boot for n in TAIL_SCHEDULE),
+                     np.log(2) / np.log(3), np.log(2)], np.float64)
+
+
+def launch_refine(rows: torch.Tensor, resampling: str,
+                  nm_iters: int = 150) -> torch.Tensor:
+    """Launch the card's refit of coefficient rows ``[M, B + 1]`` (float32
+    on a CUDA card: the statistic, then its replicates) on the current
+    stream of their device, with no host synchronisation.  The nulls are
+    made as ``split_rows`` makes them, in float64 on the card, and sorted
+    there.  Returns the kernel's ``[M, 5]`` float64 output on the device
+    (``ops/cuda_kernels.py::launch_gev_refine``), for ``settle``."""
+    from ..ops import cuda_kernels
+
+    num_boot = rows.shape[1] - 1
+    if num_boot < 1:
+        raise ValueError("the GEV refit needs at least one replicate")
+    _warn_small_b(num_boot)
+    r = rows.to(torch.float64)
+    stats = r[:, 0]
+    nulls = r[:, 1:]
+    if resampling == "bootstrap":
+        nulls = nulls - stats[:, None]
+    finite = torch.isfinite(nulls).all(1) & torch.isfinite(stats)
+    tail = min(TAIL_SCHEDULE[0], num_boot)
+    ordered = torch.sort(nulls, dim=1).values
+    tails = torch.stack([ordered[:, :tail], ordered[:, num_boot - tail:]],
+                        1).contiguous()
+    return cuda_kernels.launch_gev_refine(
+        tails, stats.abs(), finite.contiguous(), kernel_schedule(num_boot),
+        nm_iters)
+
+
+def stage_fits(accepted: np.ndarray) -> int:
+    """Fits over the tail schedule of rows with ``accepted`` stages ``[M,
+    2]``: every stage up to the accepted one (all of them if none), and the
+    right side only where the left was accepted."""
+    n = len(TAIL_SCHEDULE)
+    left, right = accepted[:, 0], accepted[:, 1]
+    fits = np.where(left > 0, left, n) + np.where(
+        left > 0, np.where(right > 0, right, n), 0)
+    return int(fits.sum())
+
+
+def settle(out: np.ndarray, rows: torch.Tensor, fallbacks: np.ndarray,
+           resampling: str, counter: Optional[str] = None,
+           nm_iters: int = 150):
+    """The p-values of rows the card refit: ``out`` is ``launch_refine``'s
+    output on the host, ``rows`` its input, ``fallbacks`` the rows' counting
+    p-values.  The rows it left to the host (status ``HOST``) are copied
+    back and refit by ``gev_refine_batch``.  ``counter`` counts the fits,
+    the card's (``stage_fits``) and the host's.
+
+    Returns ``(p-values [M], accepted stages [M, 2])``.
+    """
+    status = out[:, 1]
+    pvals = np.where(status == REFINED, out[:, 0], fallbacks)
+    accepted = out[:, 2:4].astype(np.int64)
+    host = np.nonzero(status == HOST)[0]
+    if host.size:
+        sub = rows[torch.as_tensor(host, device=rows.device)].cpu().numpy()
+        stats, nulls = split_rows(sub, resampling)
+        found = np.zeros((host.size, 2), np.int64)
+        pvals[host] = gev_refine_batch(stats, nulls, fallbacks[host],
+                                       nm_iters, counter, accepted=found)
+        accepted[host] = found
+    if counter is not None:
+        profiling.count(counter, stage_fits(accepted[status != HOST]))
+    return pvals, accepted
 
 
 __all__ = [
@@ -373,6 +524,17 @@ __all__ = [
     "gev_fit_batch",
     "ks_pvalue_batch",
     "gev_refine_batch",
+    "split_rows",
+    "ks_gate_bounds",
+    "ks_gate",
+    "kernel_schedule",
+    "launch_refine",
+    "stage_fits",
+    "settle",
     "TAIL_SCHEDULE",
     "KS_GATE",
+    "KS_GUARD",
+    "FALLBACK",
+    "REFINED",
+    "HOST",
 ]

@@ -430,62 +430,125 @@ def _pad_axis(arr, size, axis, fill=0.0):
 
 
 class _DeferredGEV:
-    """GEV tail refinement on a worker thread, off the tile loop.
+    """GEV tail refinement off the tile loop.
 
-    The main thread gathers the flagged coefficient rows on the device;
-    the copy to the host and the batched MLE run on one worker thread,
-    overlapped with later tiles.  Each task writes a disjoint set of
-    ``(row, col)`` entries of its p-value array, submitted only after the
-    counting p-values of those rows were stored.  ``finish()`` joins every
-    task and re-raises the first worker error.  A task is the span
-    ``<label>.gev.refine`` (children ``.wait``, the copy, and
-    ``<label>.gev.fit``); ``<label>.gev.rows`` counts the rows submitted
-    and ``<label>.gev.fit_rows`` the rows fitted, stage by stage.
+    Each task writes a disjoint set of ``(row, col)`` entries of its p-value
+    array, submitted only after the counting p-values of those rows were
+    stored; ``finish()`` completes every task and re-raises the first
+    error.  The path follows the rows' device:
+
+    - rows on a CUDA card: the main thread launches ``csrc/gev_refine.cu``
+      on the tile's flagged rows where it harvests them, behind the tiles
+      already queued (span ``<label>.gev.refine``; its device time is the
+      span ``<label>.gev.fit``; counter ``<label>.gev.kernel``).
+      ``finish()`` copies every launch's output back at once per device,
+      writes the p-values and refits on the host the few rows the kernel
+      left to it (span ``<label>.gev.host``, counter
+      ``<label>.gev.host_rows``);
+    - rows elsewhere: the copy to the host and the batched numpy MLE run on
+      one worker thread, overlapped with later tiles (span
+      ``<label>.gev.refine``, children ``.wait``, the copy, and
+      ``<label>.gev.fit``).
+
+    ``<label>.gev.rows`` counts the rows submitted and
+    ``<label>.gev.fit_rows`` the rows fitted, stage by stage, on either
+    path.
     """
 
     def __init__(self, label: str):
         self._pool = ThreadPoolExecutor(max_workers=1)
         self._futs = []
+        self._launched = []  # (output, rows, gi, gk, out_pval, resampling)
         self._label = label
 
-    def preload(self) -> None:
+    @staticmethod
+    def _on_card(rows) -> bool:
+        return rows.device.type == "cuda"
+
+    def preload(self, devices=(), num_boot: int = 0) -> None:
         """Start the refit's imports on the worker (the first import of
-        ``scipy.stats`` takes seconds), so that they overlap the first
-        tiles instead of holding up the tile loop."""
+        ``scipy.stats`` takes seconds), and where a device is a CUDA card
+        the kernel's library and its KS table for ``num_boot``, so that
+        they overlap the first tiles instead of holding up the tile
+        loop."""
+        card = any(torch.device(d).type == "cuda" for d in devices)
+
         def load():
             with profiling.phase(f"{self._label}.gev.refine.import"):
-                from . import gev  # noqa: F401
+                from . import gev
+
+                if card:
+                    from ..ops import cuda_kernels
+
+                    cuda_kernels.load_gev()
+                    if num_boot > 0:
+                        gev.kernel_schedule(num_boot)
 
         self._futs.append(profiling.submit(self._pool, load))
 
     def submit(self, rows_dev, gi: np.ndarray, gk: np.ndarray,
                out_pval: np.ndarray, resampling: str) -> None:
         label = self._label
+        profiling.count(f"{label}.gev.rows", len(gi))
+        if self._on_card(rows_dev):
+            from . import gev
+
+            dev = rows_dev.device
+            with _on(dev), profiling.phase(f"{label}.gev.refine"):
+                with profiling.device_phase(f"{label}.gev.fit", dev):
+                    out = gev.launch_refine(rows_dev, resampling)
+            profiling.count(f"{label}.gev.kernel")
+            self._launched.append((out, rows_dev, gi, gk, out_pval,
+                                   resampling))
+            return
 
         def work():
-            from .gev import gev_refine_batch
+            from .gev import gev_refine_batch, split_rows
 
             with profiling.phase(f"{label}.gev.refine"):
                 with profiling.wait():
-                    rows = rows_dev.cpu().numpy().astype(np.float64)
-                stats = rows[:, 0]
-                nulls = rows[:, 1:]
-                if resampling == "bootstrap":
-                    nulls = nulls - stats[:, None]
+                    rows = rows_dev.cpu().numpy()
+                stats, nulls = split_rows(rows, resampling)
                 with profiling.phase(f"{label}.gev.fit"):
                     out_pval[gi, gk] = gev_refine_batch(
                         stats, nulls, out_pval[gi, gk],
                         counter=f"{label}.gev.fit_rows")
 
-        profiling.count(f"{label}.gev.rows", len(gi))
         self._futs.append(profiling.submit(self._pool, work))
+
+    def _settle(self) -> None:
+        """The card's launches: one copy back per device, then each
+        launch's p-values and the host's rows."""
+        from . import gev
+
+        label = self._label
+        by_device = {}
+        for entry in self._launched:
+            by_device.setdefault(entry[0].device, []).append(entry)
+        for entries in by_device.values():
+            outs = torch.cat([e[0] for e in entries]).cpu().numpy()
+            profiling.resolve()
+            at = 0
+            for _, rows, gi, gk, out_pval, resampling in entries:
+                out = outs[at:at + len(gi)]
+                at += len(gi)
+                n_host = int((out[:, 1] == gev.HOST).sum())
+                with profiling.phase(f"{label}.gev.host") if n_host else \
+                        contextlib.nullcontext():
+                    out_pval[gi, gk], _ = gev.settle(
+                        out, rows, out_pval[gi, gk], resampling,
+                        counter=f"{label}.gev.fit_rows")
+                if n_host:
+                    profiling.count(f"{label}.gev.host_rows", n_host)
 
     def finish(self) -> None:
         try:
             for f in self._futs:
                 f.result()
+            self._settle()
         finally:
             self._futs = []
+            self._launched = []
             self._pool.shutdown(wait=True)
 
 
@@ -746,11 +809,12 @@ def _run_tiles(label: str, unit: str, stats: Sequence[str], n_items: int,
     tile's device program on the arrays transferred to ``dev`` and returns
     its result dict.  While the first tile is packed, this thread warms each
     device with the same program on a small tile (``_warm_up``, once per
-    ``warm_key``) and the GEV worker starts its imports.  The tiles go
-    round-robin to ``devices``; with ``nproc`` > 1 this process runs only
-    its share (``process_tile_starts``) and the rows merge across the
-    processes at the end.  Results are harvested at most ``max_pending``
-    tiles behind the launches; flagged p-value tails go to the GEV worker.
+    ``warm_key``) and the GEV worker starts its imports (on a card, the
+    kernel's library too).  The tiles go round-robin to ``devices``; with
+    ``nproc`` > 1 this process runs only its share (``process_tile_starts``)
+    and the rows merge across the processes at the end.  Results are harvested at most ``max_pending``
+    tiles behind the launches; flagged p-value tails go to the GEV refit
+    (``_DeferredGEV``: a kernel launch for rows on a CUDA card).
     No items run no tile.
 
     Spans (``utils/profiling``; none waits for the device): per tile
@@ -790,8 +854,9 @@ def _run_tiles(label: str, unit: str, stats: Sequence[str], n_items: int,
                 out[f"{stat}_coef"][sl], out[f"{stat}_se"][sl], \
                     out[f"{stat}_pval"][sl] = host[:3]
                 if not approx and host[3].any():
-                    # gather only the flagged rows on the device; the copy
-                    # and the refit run on the worker thread
+                    # gather only the flagged rows on the device: the card
+                    # refits them in place, else the worker thread copies
+                    # and refits them
                     gi, gk = np.nonzero(host[3])
                     full = res[f"{stat}_coef_full"]
                     rows_dev = full[torch.as_tensor(gi, device=full.device),
@@ -811,7 +876,7 @@ def _run_tiles(label: str, unit: str, stats: Sequence[str], n_items: int,
         fut = profiling.submit(prefetch, _pack, starts[0]) if starts else None
         if starts:
             if not approx:
-                gev_worker.preload()
+                gev_worker.preload(devices, num_boot)
             for dev in dict.fromkeys(devices):
                 _warm_up(label, warm_key, n_items, pack, launch, dev)
         for i, start in enumerate(starts):

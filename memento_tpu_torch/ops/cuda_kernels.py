@@ -7,7 +7,9 @@ _cascade_chunk_kernel``).  For a tensor on the CPU it runs the plain version,
 kernel or raises.  ``fused_multinomial_sums_cuda`` does the same for
 ``csrc/multinomial_bootstrap.cu``, the exact sampler's kernel (plain
 version: ``ops/sampling.py::fused_multinomial_sums_philox``).
-``LAUNCHES`` counts kernel launches by kernel, so a run can show that its
+``launch_gev_refine`` launches ``csrc/gev_refine.cu``, the GEV tail refits
+of one tile's flagged rows (its inputs and the host's share of the work are
+``inference/gev.py``'s).  ``LAUNCHES`` counts kernel launches by kernel, so a run can show that its
 main path went through the kernel; ``LAUNCHES_BY_W`` splits the cascade's
 count by the number of weights W (2 or 1 from the 1D test, 5 from the 2D
 test).  Launches made inside ``device.warming()`` (the tile loop's
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..device import is_warming
@@ -34,9 +37,11 @@ from . import kernel_build, sampling
 SUPPORTED_W = (1, 2, 5)
 CASCADE = "cascade_bootstrap"
 MULTINOMIAL = "multinomial_bootstrap"
-LAUNCHES = {CASCADE: 0, MULTINOMIAL: 0}
+GEV = "gev_refine"
+LAUNCHES = {CASCADE: 0, MULTINOMIAL: 0, GEV: 0}
 LAUNCHES_BY_W = {w: 0 for w in SUPPORTED_W}  # the cascade's
-WARM_LAUNCHES = {CASCADE: 0, MULTINOMIAL: 0}
+WARM_LAUNCHES = {CASCADE: 0, MULTINOMIAL: 0, GEV: 0}
+GEV_OUT_COLS = 5  # p-value, status, left stage, right stage, values fitted
 
 
 def reset_launches() -> None:
@@ -247,8 +252,98 @@ def fused_multinomial_sums_cuda(counts, weights, n_obs, num_boot: int,
                               num_boot, seed)
 
 
+def _gev_library():
+    lib = kernel_build.load(GEV)
+    fn = lib.gev_refine_launch
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       p, ctypes.c_int, p]
+        fn.restype = ctypes.c_int
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.gev_refine_resources.argtypes = [ip, ip, ip]
+        lib.gev_refine_resources.restype = ctypes.c_int
+    return lib
+
+
+def load_gev() -> None:
+    """Build (at first use) and load the GEV kernel's library."""
+    _gev_library()
+
+
+def gev_resources() -> dict:
+    """``cascade_resources`` for the GEV kernel."""
+    regs, shared, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = _gev_library().gev_refine_resources(
+        ctypes.byref(regs), ctypes.byref(shared), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"gev_refine_resources: cudaError {rc}")
+    return {"registers": regs.value, "shared_bytes": shared.value,
+            "blocks_per_sm": blocks.value}
+
+
+def gev_ptxas() -> dict:
+    """What ptxas reported for the GEV kernel when its library was built."""
+    kernel_build.build([GEV])
+    usage = kernel_build.ptxas_usage(kernel_build.BUILD_LOG.get(GEV, ""))
+    if len(usage) != 1:
+        raise RuntimeError(f"expected one gev_refine entry, got {usage}")
+    return next(iter(usage.values()))
+
+
+def launch_gev_refine(tails, abs_stat, finite, schedule, nm_iters: int):
+    """Launch the GEV kernel on one tile's flagged rows, on the current
+    stream of their device; no host synchronisation.
+
+    Args:
+      tails: ``[M, 2, L0]`` float64 CUDA tensor, each row's ``L0`` smallest
+        null values ascending, then its ``L0`` largest ascending.
+      abs_stat: ``[M]`` float64, ``|stat|``.
+      finite: ``[M]`` bool, false where the row has a non-finite entry.
+      schedule: float64 numpy array ``[5 * S + 2]``
+        (``gev.kernel_schedule``).
+      nm_iters: the Nelder-Mead iteration cap.
+
+    Returns ``[M, GEV_OUT_COLS]`` float64: the p-value (NaN unless refined),
+    the status (0 keep the counting p-value, 1 refined, 2 the host decides),
+    the accepted stage of each side (1-based, 0 if none) and the values the
+    likelihoods went over.  Each launch counts in ``count_launch``.
+    """
+    if tails.device.type != "cuda":
+        raise ValueError(f"unsupported device {tails.device}")
+    if tails.dtype != torch.float64 or tails.dim() != 3 \
+            or tails.shape[1] != 2 or not tails.is_contiguous():
+        raise ValueError("tails must be a contiguous float64 [M, 2, L0]")
+    m, _, tail_len = tails.shape
+    if abs_stat.shape != (m,) or abs_stat.dtype != torch.float64 \
+            or finite.shape != (m,) or finite.dtype != torch.bool:
+        raise ValueError("abs_stat [M] float64 and finite [M] bool expected")
+    for t in (abs_stat, finite):
+        if t.device != tails.device or not t.is_contiguous():
+            raise ValueError("inputs must be contiguous on one device")
+    n_stages = (len(schedule) - 2) // 5
+    if schedule.dtype != np.float64 or len(schedule) != 5 * n_stages + 2:
+        raise ValueError("schedule must be float64 [5 * S + 2]")
+    out = torch.empty((m, GEV_OUT_COLS), dtype=torch.float64,
+                      device=tails.device)
+    if m == 0:
+        return out
+    sched = np.ascontiguousarray(schedule)
+    stream = torch.cuda.current_stream(tails.device).cuda_stream
+    rc = _gev_library().gev_refine_launch(
+        tails.data_ptr(), abs_stat.data_ptr(), finite.data_ptr(),
+        out.data_ptr(), m, tail_len, int(nm_iters),
+        sched.ctypes.data_as(ctypes.c_void_p), n_stages, stream)
+    if rc != 0:
+        raise RuntimeError(f"gev_refine launch failed: cudaError {rc}")
+    count_launch(0, GEV)
+    return out
+
+
 __all__ = ["fused_bootstrap_sums_cuda", "fused_multinomial_sums_cuda",
            "cascade_inputs", "launch_cascade", "launch_multinomial",
            "cascade_resources", "multinomial_resources", "cascade_ptxas",
+           "launch_gev_refine", "load_gev", "gev_resources", "gev_ptxas",
            "LAUNCHES", "LAUNCHES_BY_W", "WARM_LAUNCHES", "CASCADE",
-           "MULTINOMIAL", "reset_launches", "count_launch"]
+           "MULTINOMIAL", "GEV", "GEV_OUT_COLS", "reset_launches",
+           "count_launch"]

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles, at first use and from the package's own
 sources, into ``_build/lib<name>-<hash>.so`` with a plain C interface
-(``-gencode arch=compute_90a,code=sm_90a``, Hopper).  The hash is that of
-the source, so an edited kernel is rebuilt and a stale library is never
+(``-gencode arch=compute_90a,code=sm_90a``, Hopper; a source named in
+``EXTRA_FLAGS`` gets its own flags too).  The hash is that of the source
+and its flags, so an edited kernel is rebuilt and a stale library is never
 loaded; ``nvcc``'s output (the ptxas report) is kept beside the library.
 ``build()`` starts one ``nvcc`` per source at once and waits for all of
 them.  Nothing here runs at import time.
@@ -25,6 +26,9 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# per source: the GEV refit rounds every product and sum on its own, as numpy
+# does (no fused multiply-add contractions)
+EXTRA_FLAGS = {"gev_refine": ["-fmad=false"]}
 
 _LOCK = threading.Lock()
 _LOADED: dict = {}
@@ -42,7 +46,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes()).hexdigest()
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for flag in EXTRA_FLAGS.get(name, ()):
+        h.update(b"\0" + flag.encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -64,8 +71,8 @@ def build(names=None) -> dict:
                 BUILD_LOG[name] = log.read_text()
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()),
+               "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True),
                        tmp, lib)
@@ -113,4 +120,4 @@ def load(name: str) -> ctypes.CDLL:
 
 
 __all__ = ["build", "load", "library_path", "kernel_names", "ptxas_usage",
-           "BUILD_DIR", "BUILD_LOG"]
+           "BUILD_DIR", "BUILD_LOG", "EXTRA_FLAGS"]

@@ -14,6 +14,9 @@ first port uses as the common yardstick.
 ``multinomial_tile_cost`` / ``multinomial_roofline`` do the same for the
 exact sampler's kernel (``csrc/multinomial_bootstrap.cu``): the operations
 that its draws take at least, in expectation over the resample.
+``gev_refine_cost`` / ``gev_refine_roofline`` are the GEV refit kernel's
+(``csrc/gev_refine.cu``) floor: its likelihood evaluations at the card's
+float64 rate, and one read of the tails.
 """
 
 from __future__ import annotations
@@ -183,6 +186,50 @@ def multinomial_tile_cost(counts: np.ndarray, num_boot: int,
     }
 
 
+# The GEV refit kernel's float64 work, per value a likelihood goes over (the
+# Nelder-Mead evaluations of every fit; its starts and KS passes are not
+# counted): a log and an exp, counted as the fused multiply-adds of their
+# polynomials and reductions, two correctly rounded divisions as their
+# Newton steps, and the product, difference and sum of the term.  Each
+# float64 instruction counts as two operations, as the peak counts a fused
+# multiply-add, so the bound is that of the card's full float64 issue rate.
+PEAK_FP64_S = 34e12  # H100 SXM, float64 outside the tensor cores
+FMA_LOG = 15
+FMA_EXP = 13
+FMA_DIV = 5
+FMA_TERM = 3
+OPS_GEV_VALUE = 2 * (FMA_LOG + FMA_EXP + 2 * FMA_DIV + FMA_TERM)
+# bytes a row: its two tails (float64), |stat| (float64) and finite flag
+# (one byte) read, its five float64 outputs written
+GEV_ROW_BYTES_FIXED = 8 + 1 + 5 * 8
+
+
+def gev_refine_cost(values_fitted: float, n_rows: int,
+                    tail_len: int) -> dict:
+    """The floor of one launch of the GEV kernel: ``values_fitted`` is the
+    sum of the kernel's last output column (the values its likelihoods
+    went over), ``n_rows`` the rows and ``tail_len`` the tails' length."""
+    return {
+        "ops": OPS_GEV_VALUE * float(values_fitted),
+        "hbm_bytes": n_rows * (2 * tail_len * 8 + GEV_ROW_BYTES_FIXED),
+        "values_fitted": float(values_fitted),
+    }
+
+
+def gev_refine_roofline(values_fitted: float, n_rows: int, tail_len: int,
+                        measured_s: float,
+                        fp64_ops_per_s: float = PEAK_FP64_S,
+                        hbm_bytes_per_s: float = PEAK_BYTES_S) -> dict:
+    """``roofline`` for one measured launch of the GEV kernel
+    (``gev_refine_cost``); its compute resource is ``"fp64"``."""
+    cost = gev_refine_cost(values_fitted, n_rows, tail_len)
+    out = _verdict(cost, measured_s, fp64_ops_per_s, hbm_bytes_per_s)
+    out["fp64_utilization"] = out.pop("fp32_utilization")
+    if out["limiting_resource"] == "fp32":
+        out["limiting_resource"] = "fp64"
+    return out
+
+
 def _verdict(cost: dict, measured_s: float, fp32_ops_per_s: float,
              hbm_bytes_per_s: float) -> dict:
     t_compute = cost["ops"] / fp32_ops_per_s
@@ -230,4 +277,5 @@ def multinomial_roofline(counts: np.ndarray, num_boot: int,
 
 
 __all__ = ["cascade_tile_cost", "roofline", "multinomial_tile_cost",
-           "multinomial_roofline", "PEAK_BYTES_S", "PEAK_FP32_S"]
+           "multinomial_roofline", "gev_refine_cost", "gev_refine_roofline",
+           "PEAK_BYTES_S", "PEAK_FP32_S", "PEAK_FP64_S"]

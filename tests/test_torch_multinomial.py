@@ -179,7 +179,8 @@ def test_wrapper_takes_plain_version_for_cpu_tensors(rng):
                  64, 8)
     assert torch.equal(got, want)
     assert cuda_kernels.LAUNCHES == {cuda_kernels.CASCADE: 0,
-                                     cuda_kernels.MULTINOMIAL: 0}
+                                     cuda_kernels.MULTINOMIAL: 0,
+                                     cuda_kernels.GEV: 0}
 
 
 def test_wrapper_refuses_other_devices():
