@@ -127,7 +127,6 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -857,26 +856,27 @@ def time_ms(fn, reps: int) -> float:
 
 
 class FlaggedRows:
-    """While open, keeps a copy of the rows each ``_DeferredGEV.submit``
-    receives (the flagged rows of every tile), with their resampling."""
+    """While open, keeps a copy of the rows each ``DeferredGEV.submit``
+    (``inference/gev.py``) receives (the flagged rows of every tile), with
+    their resampling."""
 
-    def __init__(self, ht):
-        self.ht = ht
+    def __init__(self, gev):
+        self.cls = gev.DeferredGEV
         self.rows = []
 
     def __enter__(self):
-        original = self.original = self.ht._DeferredGEV.submit
+        original = self.original = self.cls.submit
         kept = self.rows
 
         def submit(worker, rows_dev, gi, gk, out_pval, resampling):
             kept.append((rows_dev.clone(), resampling))
             return original(worker, rows_dev, gi, gk, out_pval, resampling)
 
-        self.ht._DeferredGEV.submit = submit
+        self.cls.submit = submit
         return self
 
     def __exit__(self, *exc):
-        self.ht._DeferredGEV.submit = self.original
+        self.cls.submit = self.original
         return False
 
 
@@ -953,7 +953,7 @@ def gev_kernel_check(kept, label):
         "bound_by": roof["limiting_resource"],
         "roofline_share": roof["bound_s"] / roof["measured_s"],
         "values_fitted": roof["values_fitted"],
-        "resources": cuda_kernels.gev_resources(),
+        "resources": cuda_kernels.resources(cuda_kernels.GEV),
     }
     if not (rec["same_stage_share"] >= GEV_SAME_STAGE_SHARE
             and rec["p_rtol_max"] <= GEV_P_RTOL_ALL
@@ -1707,10 +1707,9 @@ def main() -> int:
         rank, port, outdir = args.worker
         return distributed_worker(int(rank), port, outdir, args.seed)
     import memento_tpu_torch as mtt
-    from memento_tpu_torch import native
-    from memento_tpu_torch.native import _build as native_build
-    from memento_tpu_torch.inference import ht
-    from memento_tpu_torch.ops import cuda_kernels, kernel_build, sampling
+    from memento_tpu_torch import build, native
+    from memento_tpu_torch.inference import gev
+    from memento_tpu_torch.ops import cuda_kernels, sampling
     from memento_tpu_torch.ops.estimators import HYPER_RELATIVE
     from memento_tpu_torch.utils import profiling
     from memento_tpu_torch.utils.roofline import roofline
@@ -1723,26 +1722,26 @@ def main() -> int:
 
     # ---- (a) the card and the build ---------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:  # g++ while nvcc runs
-        host_lib = pool.submit(native_build.load)
-        kernel_build.build()
-        build_s = time.perf_counter() - t0
-        host_lib.result()
-    host_build = (f"native host library: {native_build.BUILD_LOG['compiler']}"
-                  f" | build {native_build.BUILD_LOG['seconds']:.2f} s | "
-                  f"{os.cpu_count()} CPUs, {native_build.omp_threads()} "
-                  "OpenMP threads")
-    ptxas = cuda_kernels.cascade_ptxas()
+    build.build()  # every nvcc and the g++ at once
+    build_s = time.perf_counter() - t0
+    host_log = build.BUILD_LOG["native"]
+    host_build = (f"native host library: "
+                  f"{host_log['version'].splitlines()[0]} | build "
+                  f"{host_log['seconds']:.2f} s | {os.cpu_count()} CPUs, "
+                  f"{native.omp_threads()} OpenMP threads")
+    ptxas = cuda_kernels.ptxas(cuda_kernels.CASCADE)
     instances = {}
     for w_dim in cuda_kernels.SUPPORTED_W:
         if w_dim not in ptxas:
             raise AssertionError(f"no ptxas report for the W={w_dim} instance")
-        instances[w_dim] = {**ptxas[w_dim],
-                            **cuda_kernels.cascade_resources(w_dim)}
+        instances[w_dim] = {
+            **ptxas[w_dim],
+            **cuda_kernels.resources(cuda_kernels.CASCADE, w_dim)}
         if ptxas[w_dim]["spill_store_bytes"] or \
                 ptxas[w_dim]["spill_load_bytes"]:
             raise AssertionError(f"W={w_dim} instance spills: {ptxas[w_dim]}")
-    gev_use = {**cuda_kernels.gev_ptxas(), **cuda_kernels.gev_resources()}
+    gev_use = {**cuda_kernels.ptxas(cuda_kernels.GEV)[0],
+               **cuda_kernels.resources(cuda_kernels.GEV)}
     if gev_use["spill_store_bytes"] or gev_use["spill_load_bytes"]:
         raise AssertionError(f"gev_refine spills: {gev_use}")
     log(f"(a) card: {card} | torch {torch.__version__} cuda "
@@ -1763,7 +1762,7 @@ def main() -> int:
     cuda_kernels.reset_launches()
     native.reset_calls()
     profiling.reset_timings()
-    with FlaggedRows(ht) as flagged_1d:
+    with FlaggedRows(gev) as flagged_1d:
         result, secs = run_api(mtt, adata, dev, NUM_BOOT)
     launches_1d = dict(cuda_kernels.LAUNCHES)
     calls_1d = check_native_calls(native, NATIVE_1D, "the 1D main path")
@@ -1823,7 +1822,7 @@ def main() -> int:
     cuda_kernels.reset_launches()
     native.reset_calls()
     profiling.reset_timings()
-    with FlaggedRows(ht) as flagged_2d:
+    with FlaggedRows(gev) as flagged_2d:
         result2, secs2 = run_api_2d(mtt, adata, dev, idx1, idx2, NUM_BOOT)
     launches_2d = dict(cuda_kernels.LAUNCHES)
     if launches_2d["gev_refine"] != len(flagged_2d.rows):
@@ -1902,7 +1901,7 @@ def main() -> int:
     # ---- (g) the native host layer against its plain version ---------------
     host_secs = native_against_plain(adata, idx1, idx2)
     log(f"(g) native host layer vs numpy/scipy on the main paths' inputs "
-        f"({os.cpu_count()} CPUs, {native_build.omp_threads()} OpenMP "
+        f"({os.cpu_count()} CPUs, {native.omp_threads()} OpenMP "
         f"threads): group packer equal as combos per gene, pair packer slot "
         f"for slot, sums within rtol 1e-12 | seconds "
         f"{json.dumps(host_secs)} | {card}")

@@ -184,9 +184,9 @@ def main(argv=None) -> int:
     dev = _report.select_device(args.device)
     cfg = knobs()
     if dev.type == "cuda":
-        from ..ops import kernel_build
+        from .. import build
 
-        kernel_build.build([cuda_kernels.CASCADE, cuda_kernels.MULTINOMIAL])
+        build.build([cuda_kernels.CASCADE, cuda_kernels.MULTINOMIAL])
     _report.reset(dev)
     records = run(cfg, dev)
     multinomial = run_multinomial(cfg, dev)

@@ -20,13 +20,16 @@ per tile's flagged rows (``launch_refine``), to the same procedure in
 float64.  Its KS gate compares D with two bounds per tail length
 (``ks_gate_bounds``) in place of ``kstwo.sf``; a row whose D falls between
 them, or that holds a non-finite entry, is left to this module's numpy
-path (``settle``).
+path (``settle``).  ``DeferredGEV`` runs a tile loop's refits, on the card
+or on a host worker thread.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -34,6 +37,8 @@ import scipy.special as sspec
 import scipy.stats as sstats
 import torch
 
+from .. import build
+from ..ops import cuda_kernels
 from ..utils import profiling
 from .asl import gev_refine
 
@@ -456,8 +461,6 @@ def launch_refine(rows: torch.Tensor, resampling: str,
     made as ``split_rows`` makes them, in float64 on the card, and sorted
     there.  Returns the kernel's ``[M, 5]`` float64 output on the device
     (``ops/cuda_kernels.py::launch_gev_refine``), for ``settle``."""
-    from ..ops import cuda_kernels
-
     num_boot = rows.shape[1] - 1
     if num_boot < 1:
         raise ValueError("the GEV refit needs at least one replicate")
@@ -515,6 +518,119 @@ def settle(out: np.ndarray, rows: torch.Tensor, fallbacks: np.ndarray,
     return pvals, accepted
 
 
+# ---------------------------------------------------------------------------
+# the refits of a tile loop: on the card, or on a host worker thread
+# ---------------------------------------------------------------------------
+
+
+class DeferredGEV:
+    """GEV tail refinement off the tile loop.
+
+    Each task writes a disjoint set of ``(row, col)`` entries of its p-value
+    array, submitted only after the counting p-values of those rows were
+    stored; ``finish()`` completes every task and re-raises the first
+    error.  Where the rows are refit is the kernel layer's answer for their
+    device (``cuda_kernels.on_card``):
+
+    - rows on a CUDA card: the main thread launches ``csrc/gev_refine.cu``
+      on the tile's flagged rows where it harvests them, behind the tiles
+      already queued (span ``<label>.gev.refine``; its device time is the
+      span ``<label>.gev.fit``; each launch counts in
+      ``cuda_kernels.LAUNCHES``).  ``finish()`` copies every launch's
+      output back at once per device, writes the p-values and refits on
+      the host the few rows the kernel left to it (span
+      ``<label>.gev.host``, counter ``<label>.gev.host_rows``);
+    - rows on the CPU: the copy to the host and the batched numpy MLE run
+      on one worker thread, overlapped with later tiles (span
+      ``<label>.gev.refine``, children ``.wait``, the copy, and
+      ``<label>.gev.fit``).
+
+    ``<label>.gev.rows`` counts the rows submitted and
+    ``<label>.gev.fit_rows`` the rows fitted, stage by stage, on either
+    path.
+    """
+
+    def __init__(self, label: str):
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._futs = []
+        self._launched = []  # (output, rows, gi, gk, out_pval, resampling)
+        self._label = label
+
+    def preload(self, devices=(), num_boot: int = 0) -> None:
+        """Where a device is a CUDA card, load the kernel's library and
+        make its KS table for ``num_boot`` on the worker (span
+        ``<label>.gev.refine.import``), so that they overlap the first
+        tiles instead of holding up the tile loop."""
+        card = any(cuda_kernels.on_card(d) for d in devices)
+
+        def load():
+            with profiling.phase(f"{self._label}.gev.refine.import"):
+                if card:
+                    build.load(cuda_kernels.GEV)
+                    if num_boot > 0:
+                        kernel_schedule(num_boot)
+
+        self._futs.append(profiling.submit(self._pool, load))
+
+    def submit(self, rows_dev, gi: np.ndarray, gk: np.ndarray,
+               out_pval: np.ndarray, resampling: str) -> None:
+        label = self._label
+        profiling.count(f"{label}.gev.rows", len(gi))
+        if cuda_kernels.on_card(rows_dev.device):
+            with profiling.phase(f"{label}.gev.refine"):
+                with profiling.device_phase(f"{label}.gev.fit",
+                                            rows_dev.device):
+                    out = launch_refine(rows_dev, resampling)
+            self._launched.append((out, rows_dev, gi, gk, out_pval,
+                                   resampling))
+            return
+
+        def work():
+            with profiling.phase(f"{label}.gev.refine"):
+                with profiling.wait():
+                    rows = rows_dev.cpu().numpy()
+                stats, nulls = split_rows(rows, resampling)
+                with profiling.phase(f"{label}.gev.fit"):
+                    out_pval[gi, gk] = gev_refine_batch(
+                        stats, nulls, out_pval[gi, gk],
+                        counter=f"{label}.gev.fit_rows")
+
+        self._futs.append(profiling.submit(self._pool, work))
+
+    def _settle(self) -> None:
+        """The card's launches: one copy back per device, then each
+        launch's p-values and the host's rows."""
+        label = self._label
+        by_device = {}
+        for entry in self._launched:
+            by_device.setdefault(entry[0].device, []).append(entry)
+        for entries in by_device.values():
+            outs = torch.cat([e[0] for e in entries]).cpu().numpy()
+            profiling.resolve()
+            at = 0
+            for _, rows, gi, gk, out_pval, resampling in entries:
+                out = outs[at:at + len(gi)]
+                at += len(gi)
+                n_host = int((out[:, 1] == HOST).sum())
+                with profiling.phase(f"{label}.gev.host") if n_host else \
+                        contextlib.nullcontext():
+                    out_pval[gi, gk], _ = settle(
+                        out, rows, out_pval[gi, gk], resampling,
+                        counter=f"{label}.gev.fit_rows")
+                if n_host:
+                    profiling.count(f"{label}.gev.host_rows", n_host)
+
+    def finish(self) -> None:
+        try:
+            for f in self._futs:
+                f.result()
+            self._settle()
+        finally:
+            self._futs = []
+            self._launched = []
+            self._pool.shutdown(wait=True)
+
+
 __all__ = [
     "gev_nll",
     "gev_cdf",
@@ -531,6 +647,7 @@ __all__ = [
     "launch_refine",
     "stage_fits",
     "settle",
+    "DeferredGEV",
     "TAIL_SCHEDULE",
     "KS_GATE",
     "KS_GUARD",

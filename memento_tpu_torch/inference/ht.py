@@ -46,6 +46,7 @@ from ..ops.estimators import NoiseModel, corr_from_cov
 from ..ops.mv_regression import residual_variance
 from ..utils import profiling
 from .asl import asl_counting
+from .gev import DeferredGEV
 from .regression import meta_regress
 
 
@@ -429,129 +430,6 @@ def _pad_axis(arr, size, axis, fill=0.0):
     return np.pad(arr, widths, constant_values=fill)
 
 
-class _DeferredGEV:
-    """GEV tail refinement off the tile loop.
-
-    Each task writes a disjoint set of ``(row, col)`` entries of its p-value
-    array, submitted only after the counting p-values of those rows were
-    stored; ``finish()`` completes every task and re-raises the first
-    error.  The path follows the rows' device:
-
-    - rows on a CUDA card: the main thread launches ``csrc/gev_refine.cu``
-      on the tile's flagged rows where it harvests them, behind the tiles
-      already queued (span ``<label>.gev.refine``; its device time is the
-      span ``<label>.gev.fit``; counter ``<label>.gev.kernel``).
-      ``finish()`` copies every launch's output back at once per device,
-      writes the p-values and refits on the host the few rows the kernel
-      left to it (span ``<label>.gev.host``, counter
-      ``<label>.gev.host_rows``);
-    - rows elsewhere: the copy to the host and the batched numpy MLE run on
-      one worker thread, overlapped with later tiles (span
-      ``<label>.gev.refine``, children ``.wait``, the copy, and
-      ``<label>.gev.fit``).
-
-    ``<label>.gev.rows`` counts the rows submitted and
-    ``<label>.gev.fit_rows`` the rows fitted, stage by stage, on either
-    path.
-    """
-
-    def __init__(self, label: str):
-        self._pool = ThreadPoolExecutor(max_workers=1)
-        self._futs = []
-        self._launched = []  # (output, rows, gi, gk, out_pval, resampling)
-        self._label = label
-
-    @staticmethod
-    def _on_card(rows) -> bool:
-        return rows.device.type == "cuda"
-
-    def preload(self, devices=(), num_boot: int = 0) -> None:
-        """Start the refit's imports on the worker (the first import of
-        ``scipy.stats`` takes seconds), and where a device is a CUDA card
-        the kernel's library and its KS table for ``num_boot``, so that
-        they overlap the first tiles instead of holding up the tile
-        loop."""
-        card = any(torch.device(d).type == "cuda" for d in devices)
-
-        def load():
-            with profiling.phase(f"{self._label}.gev.refine.import"):
-                from . import gev
-
-                if card:
-                    from ..ops import cuda_kernels
-
-                    cuda_kernels.load_gev()
-                    if num_boot > 0:
-                        gev.kernel_schedule(num_boot)
-
-        self._futs.append(profiling.submit(self._pool, load))
-
-    def submit(self, rows_dev, gi: np.ndarray, gk: np.ndarray,
-               out_pval: np.ndarray, resampling: str) -> None:
-        label = self._label
-        profiling.count(f"{label}.gev.rows", len(gi))
-        if self._on_card(rows_dev):
-            from . import gev
-
-            dev = rows_dev.device
-            with _on(dev), profiling.phase(f"{label}.gev.refine"):
-                with profiling.device_phase(f"{label}.gev.fit", dev):
-                    out = gev.launch_refine(rows_dev, resampling)
-            profiling.count(f"{label}.gev.kernel")
-            self._launched.append((out, rows_dev, gi, gk, out_pval,
-                                   resampling))
-            return
-
-        def work():
-            from .gev import gev_refine_batch, split_rows
-
-            with profiling.phase(f"{label}.gev.refine"):
-                with profiling.wait():
-                    rows = rows_dev.cpu().numpy()
-                stats, nulls = split_rows(rows, resampling)
-                with profiling.phase(f"{label}.gev.fit"):
-                    out_pval[gi, gk] = gev_refine_batch(
-                        stats, nulls, out_pval[gi, gk],
-                        counter=f"{label}.gev.fit_rows")
-
-        self._futs.append(profiling.submit(self._pool, work))
-
-    def _settle(self) -> None:
-        """The card's launches: one copy back per device, then each
-        launch's p-values and the host's rows."""
-        from . import gev
-
-        label = self._label
-        by_device = {}
-        for entry in self._launched:
-            by_device.setdefault(entry[0].device, []).append(entry)
-        for entries in by_device.values():
-            outs = torch.cat([e[0] for e in entries]).cpu().numpy()
-            profiling.resolve()
-            at = 0
-            for _, rows, gi, gk, out_pval, resampling in entries:
-                out = outs[at:at + len(gi)]
-                at += len(gi)
-                n_host = int((out[:, 1] == gev.HOST).sum())
-                with profiling.phase(f"{label}.gev.host") if n_host else \
-                        contextlib.nullcontext():
-                    out_pval[gi, gk], _ = gev.settle(
-                        out, rows, out_pval[gi, gk], resampling,
-                        counter=f"{label}.gev.fit_rows")
-                if n_host:
-                    profiling.count(f"{label}.gev.host_rows", n_host)
-
-    def finish(self) -> None:
-        try:
-            for f in self._futs:
-                f.result()
-            self._settle()
-        finally:
-            self._futs = []
-            self._launched = []
-            self._pool.shutdown(wait=True)
-
-
 # Float32 elements a tile's buffers may take off a CUDA card: 2**28 (1 GiB),
 # the JAX package's fixed budget.
 CPU_TILE_BUDGET = 1 << 28
@@ -693,11 +571,12 @@ def _warm_up(label: str, key, n_items: int, pack: Callable, launch: Callable,
         _WARMED.add(marker)
 
 
-def _resolve_sampler(sampler: str, device: torch.device) -> str:
-    """``'auto'`` -> the CUDA kernel on a CUDA device, the plain cascade on
-    the CPU; any other sampler the caller names is the one that runs."""
+def _resolve_sampler(sampler: str) -> str:
+    """``'auto'`` -> ``'cascade_cuda'``, whose wrapper launches the CUDA
+    kernel on a card and runs the plain cascade on the CPU; any other
+    sampler the caller names is the one that runs."""
     if sampler == "auto":
-        return "cascade_cuda" if device.type == "cuda" else "cascade"
+        return "cascade_cuda"
     if sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler {sampler!r}; options: "
                          f"{('auto',) + SAMPLERS}")
@@ -814,7 +693,7 @@ def _run_tiles(label: str, unit: str, stats: Sequence[str], n_items: int,
     ``nproc`` > 1 this process runs only its share (``process_tile_starts``)
     and the rows merge across the processes at the end.  Results are harvested at most ``max_pending``
     tiles behind the launches; flagged p-value tails go to the GEV refit
-    (``_DeferredGEV``: a kernel launch for rows on a CUDA card).
+    (``gev.DeferredGEV``: a kernel launch for rows on a CUDA card).
     No items run no tile.
 
     Spans (``utils/profiling``; none waits for the device): per tile
@@ -839,7 +718,7 @@ def _run_tiles(label: str, unit: str, stats: Sequence[str], n_items: int,
     progress = profiling.ProgressReporter(n_local, unit=unit, label=label,
                                           enabled=bool(verbose))
     progress.note(note)
-    gev_worker = _DeferredGEV(label)
+    gev_worker = DeferredGEV(label)
     keys = ("coef", "se", "pval") + (() if approx else ("needs_gev",))
 
     def harvest(start, stop, res):
@@ -962,7 +841,7 @@ def run_ht_1d(
 
     nproc = _check_distributed(distributed)
     devices = _tile_devices(mesh, device, nproc)
-    samplers = {dev: _resolve_sampler(sampler, dev) for dev in devices}
+    sampler = _resolve_sampler(sampler)
     if compressed is not None:
         r = len(compressed)
         u_fixed = max(c.padded_u for c in compressed)
@@ -1026,7 +905,7 @@ def run_ht_1d(
         return ht_1d_tile(
             fold_seed(seed, start), *tile_args,
             num_boot=num_boot, model=model,
-            sampler=samplers[dev], one_sample=one_sample,
+            sampler=sampler, one_sample=one_sample,
             resampling=resampling, approx=approx, resample_rep=resample_rep,
             boot_chunk=min(boot_chunk, num_boot), custom_1d=custom_1d,
             treat_padded=per_gene_treatment, device=dev, **static)
@@ -1037,8 +916,8 @@ def run_ht_1d(
         resampling=resampling, approx=approx,
         max_pending=max_pending, verbose=verbose,
         note=f"{g} genes in tiles of {tile_size} on {_names(devices)} "
-             f"(sampler {_names(samplers.values())}, {nproc} processes)",
-        warm_key=(tuple(samplers.items()), num_boot, r, kt,
+             f"(sampler {sampler}, {nproc} processes)",
+        warm_key=(sampler, num_boot, r, kt,
                   np.shape(covariate)[-1], one_sample, per_gene_treatment,
                   resampling, approx, resample_rep, min(boot_chunk, num_boot),
                   id(custom_1d)))
@@ -1090,7 +969,7 @@ def run_ht_2d(
 
     nproc = _check_distributed(distributed)
     devices = _tile_devices(mesh, device, nproc)
-    samplers = {dev: _resolve_sampler(sampler, dev) for dev in devices}
+    sampler = _resolve_sampler(sampler)
     if compressed_pairs is not None:
         r = len(compressed_pairs)
         u_fixed = max(c.padded_u for c in compressed_pairs)
@@ -1149,7 +1028,7 @@ def run_ht_2d(
         return ht_2d_tile(
             fold_seed(seed, start), *tile_args,
             num_boot=num_boot, model=model,
-            sampler=samplers[dev], one_sample=one_sample,
+            sampler=sampler, one_sample=one_sample,
             resampling=resampling, approx=approx, resample_rep=resample_rep,
             boot_chunk=min(boot_chunk, num_boot), custom_est=custom_est,
             treat_padded=per_pair_treatment, device=dev, **static)
@@ -1160,8 +1039,8 @@ def run_ht_2d(
         resampling=resampling, approx=approx,
         max_pending=max_pending, verbose=verbose,
         note=f"{p} pairs in tiles of {tile_size} on {_names(devices)} "
-             f"(sampler {_names(samplers.values())}, {nproc} processes)",
-        warm_key=(tuple(samplers.items()), num_boot, r, kt,
+             f"(sampler {sampler}, {nproc} processes)",
+        warm_key=(sampler, num_boot, r, kt,
                   np.shape(covariate)[-1], one_sample, per_pair_treatment,
                   resampling, approx, resample_rep, min(boot_chunk, num_boot),
                   id(custom_est)))

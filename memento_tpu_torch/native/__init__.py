@@ -3,7 +3,7 @@ statistics and pair products.
 
 Counterpart of ``memento_tpu/native/`` with its own copies of the C++
 sources (``compress.cpp``, ``suffstats.cpp``, ``pairs.cpp``), built by
-``g++`` at first use into ``_build/`` (see ``_build.py``) and called through
+``g++`` at first use into ``_build/`` (see ``build.py``) and called through
 ctypes, which releases the interpreter lock for the length of each call.
 
 Each wrapper returns ``None`` for an input the C++ does not take, and its
@@ -37,7 +37,7 @@ import threading
 import numpy as np
 import scipy.sparse as sparse
 
-from . import _build
+from .. import build
 
 CALLS = {name: 0 for name in (
     "compress_group", "compress_group_range", "compress_pairs",
@@ -82,7 +82,7 @@ def reset_calls() -> None:
 def _call(entry: str, counter: str, *args):
     """Call ``entry`` of the library (built on first use) and count it;
     returns the entry's status (``None`` for an entry without one)."""
-    lib = _build.load()
+    lib = build.load("native")
     fn = getattr(lib, entry)
     if fn.argtypes is None:
         fn.argtypes = _SIGNATURES[entry]
@@ -577,8 +577,15 @@ def col_sums_csr_native(X):
     return col_sum, col_nnz
 
 
+def omp_threads() -> int:
+    """OpenMP's thread count in the library's parallel regions."""
+    fn = build.load("native").omp_get_max_threads  # libgomp, through it
+    fn.restype = ctypes.c_int
+    return int(fn())
+
+
 __all__ = [
-    "CALLS", "reset_calls", "MAX_HIST",
+    "CALLS", "reset_calls", "MAX_HIST", "omp_threads",
     "compress_group_native", "compress_group_range_native",
     "compress_pairs_native", "suffstats_csr_native", "suffstats_csc_native",
     "pair_prods_csc_native", "row_sums_csr_native", "col_sums_csr_native",

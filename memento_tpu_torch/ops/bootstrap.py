@@ -12,7 +12,7 @@ so each replicate's moments are weighted sums of one resample: two per gene
 cross moment and both second moments from a single joint resample).  The
 fused samplers (the cascade, in the CUDA kernel or its plain version, and
 the exact multinomial, in its CUDA kernel on the card and as the
-``torch.binomial`` chain elsewhere) compute them without materializing
+``torch.binomial`` chain on the CPU) compute them without materializing
 ``n_ub``; the ``poisson`` and ``gaussian`` samplers materialize the draws
 and contract them (``mean_var_compressed`` / ``cov_compressed``).
 
@@ -71,24 +71,22 @@ def _row_params(counts, n_obs, q):
 def _moment_sums(counts, weights, n_rows, num_boot: int, seed: int,
                  sampler: str):
     """Per-cell weighted sums of the resample, ``[..., W, B]``: the batch
-    flattens to rows (each with its own trial count) for the kernel, its
-    plain version or the exact multinomial sums (the multinomial kernel for
-    a CUDA tensor, the ``torch.binomial`` chain on any other device)."""
+    flattens to rows (each with its own trial count) for the law's fused
+    sums: the plain cascade, or a wrapper of ``ops/cuda_kernels.py``, which
+    launches its kernel for a CUDA tensor and runs the CPU path (the plain
+    cascade, the ``torch.binomial`` chain) for a CPU tensor."""
+    fused = {"cascade": fused_bootstrap_sums,
+             "cascade_cuda": fused_bootstrap_sums_cuda,
+             "multinomial": fused_multinomial_sums_cuda}.get(sampler)
+    if fused is None:
+        raise ValueError(f"unknown fused sampler {sampler!r}; options: "
+                         f"{SAMPLERS}")
     batch = counts.shape[:-1]
     u_dim = counts.shape[-1]
     w_dim = weights.shape[-1]
-    flat = (counts.reshape(-1, u_dim).contiguous(),
-            weights.reshape(-1, u_dim, w_dim).contiguous(),
-            n_rows.reshape(-1).contiguous(), num_boot, seed)
-    if sampler == "cascade_cuda":
-        sums = fused_bootstrap_sums_cuda(*flat)
-    elif sampler == "multinomial" and counts.is_cuda:
-        sums = fused_multinomial_sums_cuda(*flat)
-    elif sampler in ("cascade", "multinomial"):
-        sums = fused_bootstrap_sums(*flat, sampler=sampler)
-    else:
-        raise ValueError(f"unknown fused sampler {sampler!r}; options: "
-                         f"{SAMPLERS}")
+    sums = fused(counts.reshape(-1, u_dim).contiguous(),
+                 weights.reshape(-1, u_dim, w_dim).contiguous(),
+                 n_rows.reshape(-1).contiguous(), num_boot, seed)
     return sums.reshape(*batch, w_dim, num_boot) / n_rows[..., None, None]
 
 
@@ -104,7 +102,7 @@ def bootstrap_1d(values, counts, inv_sf, inv_sf_sq, n_obs, q,
       sampler: ``'cascade'`` (the plain version), ``'cascade_cuda'`` (the
         kernel for CUDA tensors; the plain version for CPU tensors),
         ``'multinomial'`` (exact fused sums: the multinomial kernel for
-        CUDA tensors, the ``torch.binomial`` chain otherwise),
+        CUDA tensors, the ``torch.binomial`` chain for CPU tensors),
         ``'poisson'`` or ``'gaussian'`` (materialized draws).
 
     Returns:

@@ -1,19 +1,27 @@
 """Wrappers of the hand-written CUDA kernels.
 
+Each kernel is one entry of ``KERNELS`` (the argtypes of its symbols
+``<name>_launch`` and ``<name>_resources`` in the library
+``build.LIBRARIES[name]``), served by ``_library``, ``_launch``,
+``resources`` and ``ptxas``.  The wrappers are the one place that chooses
+by device (``on_card``): a CUDA tensor launches the kernel, a CPU tensor
+runs the program's CPU path, any other device raises.
 ``fused_bootstrap_sums_cuda`` launches ``csrc/cascade_bootstrap.cu`` (the
 port of the TPU kernel ``memento_tpu/ops/pallas_kernels.py::
-_cascade_chunk_kernel``).  For a tensor on the CPU it runs the plain version,
-``ops/sampling.py::fused_bootstrap_sums``; for a CUDA tensor it launches the
-kernel or raises.  ``fused_multinomial_sums_cuda`` does the same for
-``csrc/multinomial_bootstrap.cu``, the exact sampler's kernel (plain
-version: ``ops/sampling.py::fused_multinomial_sums_philox``).
-``launch_gev_refine`` launches ``csrc/gev_refine.cu``, the GEV tail refits
-of one tile's flagged rows (its inputs and the host's share of the work are
-``inference/gev.py``'s).  ``LAUNCHES`` counts kernel launches by kernel, so a run can show that its
-main path went through the kernel; ``LAUNCHES_BY_W`` splits the cascade's
-count by the number of weights W (2 or 1 from the 1D test, 5 from the 2D
-test).  Launches made inside ``device.warming()`` (the tile loop's
-first-use warm-up) count in ``WARM_LAUNCHES`` instead.
+_cascade_chunk_kernel``), on the CPU the plain cascade
+(``ops/sampling.py::fused_bootstrap_sums``); ``fused_multinomial_sums_cuda``
+launches ``csrc/multinomial_bootstrap.cu``, the exact sampler's kernel, on
+the CPU the ``torch.binomial`` chain (``fused_bootstrap_sums(...,
+sampler="multinomial")``).  Their draw-for-draw references on the kernels'
+Philox streams are ``sampling.fused_bootstrap_sums_philox`` and
+``sampling.fused_multinomial_sums_philox``.  ``launch_gev_refine``
+launches ``csrc/gev_refine.cu``, the GEV tail refits of one tile's flagged
+rows (its inputs, the host's share and the choice of card or host worker
+are ``inference/gev.py``'s).  ``LAUNCHES`` counts launches by kernel, so a
+run can show that its main path went through the kernel; ``LAUNCHES_BY_W``
+splits the cascade's count by the number of weights W (2 or 1 from the 1D
+test, 5 from the 2D test).  Launches inside ``device.warming()`` (the tile
+loop's first-use warm-up) count in ``WARM_LAUNCHES`` instead.
 
 What depends on the counts alone stays plain tensor operations here, as the
 JAX package computes them outside its Pallas call (``cascade_inputs``): the
@@ -26,21 +34,32 @@ blocks does not wait for one long row).  ``launch_cascade`` and
 from __future__ import annotations
 
 import ctypes
+import re
 
 import numpy as np
 import torch
 
+from .. import build
 from ..device import is_warming
-from ..utils import profiling
-from . import kernel_build, sampling
+from . import sampling
 
 SUPPORTED_W = (1, 2, 5)
 CASCADE = "cascade_bootstrap"
 MULTINOMIAL = "multinomial_bootstrap"
 GEV = "gev_refine"
-LAUNCHES = {CASCADE: 0, MULTINOMIAL: 0, GEV: 0}
+_P, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+# per kernel: the argtypes of ``<name>_launch`` and of ``<name>_resources``
+# (each returns a cudaError_t)
+KERNELS = {
+    CASCADE: ([_P] * 8 + [_I] * 4 + [ctypes.c_ulonglong, _P],
+              [_I, _IP, _IP, _IP]),
+    MULTINOMIAL: ([_P] * 6 + [_I] * 4 + [ctypes.c_ulonglong, _P],
+                  [_I, _IP, _IP, _IP]),
+    GEV: ([_P] * 4 + [_I] * 3 + [_P, _I, _P], [_IP, _IP, _IP]),
+}
+LAUNCHES = {name: 0 for name in KERNELS}
 LAUNCHES_BY_W = {w: 0 for w in SUPPORTED_W}  # the cascade's
-WARM_LAUNCHES = {CASCADE: 0, MULTINOMIAL: 0, GEV: 0}
+WARM_LAUNCHES = {name: 0 for name in KERNELS}
 GEV_OUT_COLS = 5  # p-value, status, left stage, right stage, values fitted
 
 
@@ -62,39 +81,72 @@ def count_launch(w_dim: int, kernel: str = CASCADE) -> None:
         LAUNCHES_BY_W[w_dim] += 1
 
 
-def _cascade_library():
-    lib = kernel_build.load(CASCADE)
-    fn = lib.cascade_bootstrap_launch
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong, p]
-        fn.restype = ctypes.c_int
-        ip = ctypes.POINTER(ctypes.c_int)
-        lib.cascade_bootstrap_resources.argtypes = [ctypes.c_int, ip, ip, ip]
-        lib.cascade_bootstrap_resources.restype = ctypes.c_int
+def on_card(device) -> bool:
+    """Whether a kernel runs on ``device``: true for a CUDA device, false
+    for the CPU (where the program's CPU path runs); any other device
+    raises."""
+    dev = torch.device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type == "cuda"
+
+
+def _library(name: str):
+    """Kernel ``name``'s library, built and loaded on first use, with its
+    two symbols' argtypes set."""
+    lib = build.load(name)
+    launch = getattr(lib, f"{name}_launch")
+    if launch.argtypes is None:
+        launch_args, resources_args = KERNELS[name]
+        query = getattr(lib, f"{name}_resources")
+        query.argtypes, query.restype = resources_args, ctypes.c_int
+        launch.restype = ctypes.c_int
+        launch.argtypes = launch_args
     return lib
 
 
-def cascade_ptxas() -> dict:
-    """What ptxas reported for each instance when the library was built,
-    keyed by W: ``{"registers", "spill_store_bytes", "spill_load_bytes"}``."""
-    kernel_build.build([CASCADE])
-    usage = kernel_build.ptxas_usage(kernel_build.BUILD_LOG.get(CASCADE, ""))
-    return {w: use for w in SUPPORTED_W for entry, use in usage.items()
-            if f"ILi{w}E" in entry}
-
-
-def cascade_resources(w_dim: int) -> dict:
-    """Registers per thread, shared memory per block and resident blocks per
-    SM of the kernel's instance for ``w_dim`` weights, from the runtime."""
-    regs, shared, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    rc = _cascade_library().cascade_bootstrap_resources(
-        w_dim, ctypes.byref(regs), ctypes.byref(shared), ctypes.byref(blocks))
+def _launch(name: str, w_dim: int, device, *args) -> None:
+    """Launch kernel ``name`` with ``args`` on the current stream of
+    ``device`` and count the launch (``count_launch``)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):  # the stream's device
+        rc = getattr(_library(name), f"{name}_launch")(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"cascade_bootstrap_resources: cudaError {rc}")
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    count_launch(w_dim, name)
+
+
+def resources(name: str, *args) -> dict:
+    """Registers per thread, shared memory per block and resident blocks per
+    SM of kernel ``name`` from the runtime; ``args`` pick the instance (W
+    for the cascade and the multinomial kernel, none for the GEV kernel)."""
+    regs, shared, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = getattr(_library(name), f"{name}_resources")(
+        *args, ctypes.byref(regs), ctypes.byref(shared), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"{name}_resources: cudaError {rc}")
     return {"registers": regs.value, "shared_bytes": shared.value,
             "blocks_per_sm": blocks.value}
+
+
+def ptxas(name: str) -> dict:
+    """What ptxas reported for each instance of kernel ``name`` when its
+    library was built, keyed by the instance's W (0 for a kernel that is
+    not templated on it): ``{"registers", "spill_store_bytes",
+    "spill_load_bytes"}``."""
+    build.build([name])
+    usage = {}
+    for entry, body in re.findall(
+            r"Compiling entry function '(\S+?)'(.*?)(?=Compiling entry|\Z)",
+            build.BUILD_LOG[name]["log"], flags=re.S):
+        w_dim = re.search(r"ILi(\d+)E", entry)
+        found = {key: re.search(rx, body) for key, rx in (
+            ("registers", r"Used (\d+) registers"),
+            ("spill_store_bytes", r"(\d+) bytes spill stores"),
+            ("spill_load_bytes", r"(\d+) bytes spill loads"))}
+        usage[int(w_dim.group(1)) if w_dim else 0] = {
+            key: int(m.group(1)) if m else None for key, m in found.items()}
+    return usage
 
 
 def cascade_inputs(counts, longest_first: bool = True):
@@ -123,23 +175,17 @@ def launch_cascade(counts, weights, n_rows, inputs, num_boot: int, seed: int):
     w_dim = weights.shape[-1]
     out = torch.empty((t_dim, w_dim, num_boot), dtype=torch.float32,
                       device=counts.device)
-    launch = _cascade_library().cascade_bootstrap_launch
-    stream = torch.cuda.current_stream(counts.device).cuda_stream
-    rc = launch(counts.data_ptr(), ratio.data_ptr(), ctail.data_ptr(),
-                weights.data_ptr(), n_rows.data_ptr(), u_end.data_ptr(),
-                order.data_ptr(), out.data_ptr(), t_dim, u_dim, w_dim,
-                num_boot, int(seed) & ((1 << 64) - 1), stream)
-    if rc != 0:
-        raise RuntimeError(f"cascade_bootstrap launch failed: cudaError {rc}")
-    count_launch(w_dim)
+    _launch(CASCADE, w_dim, counts.device, counts.data_ptr(),
+            ratio.data_ptr(), ctail.data_ptr(), weights.data_ptr(),
+            n_rows.data_ptr(), u_end.data_ptr(), order.data_ptr(),
+            out.data_ptr(), t_dim, u_dim, w_dim, num_boot,
+            int(seed) & ((1 << 64) - 1))
     return out
 
 
 def _check_tile(counts, weights, n_obs):
     """Validate CUDA tiles ``counts [T, U]``, ``weights [T, U, W]``; returns
     ``n_obs`` as a contiguous float32 ``[T]`` on their device."""
-    if counts.device.type != "cuda":
-        raise ValueError(f"unsupported device {counts.device}")
     if counts.dim() != 2 or weights.dim() != 3 \
             or weights.shape[:2] != counts.shape:
         raise ValueError(f"expected counts [T, U] and weights [T, U, W]; got "
@@ -174,7 +220,7 @@ def fused_bootstrap_sums_cuda(counts, weights, n_obs, num_boot: int,
       num_boot: replicates B.
       seed: derived 64-bit seed (the kernel's Philox key).
     """
-    if counts.device.type == "cpu":
+    if not on_card(counts.device):
         return sampling.fused_bootstrap_sums(counts, weights, n_obs,
                                              num_boot, seed)
     n_rows = _check_tile(counts, weights, n_obs)
@@ -184,52 +230,19 @@ def fused_bootstrap_sums_cuda(counts, weights, n_obs, num_boot: int,
                           num_boot, seed)
 
 
-def _multinomial_library():
-    lib = kernel_build.load(MULTINOMIAL)
-    fn = lib.multinomial_bootstrap_launch
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong, p]
-        fn.restype = ctypes.c_int
-        ip = ctypes.POINTER(ctypes.c_int)
-        lib.multinomial_bootstrap_resources.argtypes = [ctypes.c_int, ip, ip,
-                                                        ip]
-        lib.multinomial_bootstrap_resources.restype = ctypes.c_int
-    return lib
-
-
-def multinomial_resources(w_dim: int) -> dict:
-    """``cascade_resources`` for the multinomial kernel."""
-    regs, shared, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    rc = _multinomial_library().multinomial_bootstrap_resources(
-        w_dim, ctypes.byref(regs), ctypes.byref(shared), ctypes.byref(blocks))
-    if rc != 0:
-        raise RuntimeError(f"multinomial_bootstrap_resources: cudaError {rc}")
-    return {"registers": regs.value, "shared_bytes": shared.value,
-            "blocks_per_sm": blocks.value}
-
-
 def launch_multinomial(weights, n_rows, inputs, num_boot: int, seed: int):
     """Launch the multinomial kernel on validated CUDA tensors; ``inputs``
     is ``cascade_inputs(counts)`` (its ``ctail`` is not read).  Returns
-    sums ``[T, W, B]``.  Each launch counts once in the counter
-    ``multinomial.kernel`` (warm-up included) and in ``count_launch``."""
+    sums ``[T, W, B]``."""
     ratio, _, u_end, order = inputs
     t_dim, u_dim = ratio.shape
     w_dim = weights.shape[-1]
     out = torch.empty((t_dim, w_dim, num_boot), dtype=torch.float32,
                       device=ratio.device)
-    launch = _multinomial_library().multinomial_bootstrap_launch
-    stream = torch.cuda.current_stream(ratio.device).cuda_stream
-    rc = launch(ratio.data_ptr(), weights.data_ptr(), n_rows.data_ptr(),
-                u_end.data_ptr(), order.data_ptr(), out.data_ptr(), t_dim,
-                u_dim, w_dim, num_boot, int(seed) & ((1 << 64) - 1), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"multinomial_bootstrap launch failed: cudaError {rc}")
-    count_launch(w_dim, MULTINOMIAL)
-    profiling.count("multinomial.kernel")
+    _launch(MULTINOMIAL, w_dim, ratio.device, ratio.data_ptr(),
+            weights.data_ptr(), n_rows.data_ptr(), u_end.data_ptr(),
+            order.data_ptr(), out.data_ptr(), t_dim, u_dim, w_dim, num_boot,
+            int(seed) & ((1 << 64) - 1))
     return out
 
 
@@ -237,58 +250,20 @@ def fused_multinomial_sums_cuda(counts, weights, n_obs, num_boot: int,
                                 seed: int):
     """Exact multinomial bootstrap sums ``[T, W, B]`` float32: one launch of
     ``csrc/multinomial_bootstrap.cu``, no host synchronisation.  For a
-    tensor on the CPU, the kernel's plain version
-    (``sampling.fused_multinomial_sums_philox``, the same draws).
+    tensor on the CPU, the ``torch.binomial`` chain
+    (``sampling.fused_bootstrap_sums(..., sampler="multinomial")``).
 
     Args: as ``fused_bootstrap_sums_cuda``.
     """
-    if counts.device.type == "cpu":
-        return sampling.fused_multinomial_sums_philox(counts, weights, n_obs,
-                                                      num_boot, seed)
+    if not on_card(counts.device):
+        return sampling.fused_bootstrap_sums(counts, weights, n_obs,
+                                             num_boot, seed,
+                                             sampler="multinomial")
     n_rows = _check_tile(counts, weights, n_obs)
     if counts.shape[0] == 0 or num_boot == 0:
         return _empty_sums(counts, weights, num_boot)
     return launch_multinomial(weights, n_rows, cascade_inputs(counts),
                               num_boot, seed)
-
-
-def _gev_library():
-    lib = kernel_build.load(GEV)
-    fn = lib.gev_refine_launch
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       p, ctypes.c_int, p]
-        fn.restype = ctypes.c_int
-        ip = ctypes.POINTER(ctypes.c_int)
-        lib.gev_refine_resources.argtypes = [ip, ip, ip]
-        lib.gev_refine_resources.restype = ctypes.c_int
-    return lib
-
-
-def load_gev() -> None:
-    """Build (at first use) and load the GEV kernel's library."""
-    _gev_library()
-
-
-def gev_resources() -> dict:
-    """``cascade_resources`` for the GEV kernel."""
-    regs, shared, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    rc = _gev_library().gev_refine_resources(
-        ctypes.byref(regs), ctypes.byref(shared), ctypes.byref(blocks))
-    if rc != 0:
-        raise RuntimeError(f"gev_refine_resources: cudaError {rc}")
-    return {"registers": regs.value, "shared_bytes": shared.value,
-            "blocks_per_sm": blocks.value}
-
-
-def gev_ptxas() -> dict:
-    """What ptxas reported for the GEV kernel when its library was built."""
-    kernel_build.build([GEV])
-    usage = kernel_build.ptxas_usage(kernel_build.BUILD_LOG.get(GEV, ""))
-    if len(usage) != 1:
-        raise RuntimeError(f"expected one gev_refine entry, got {usage}")
-    return next(iter(usage.values()))
 
 
 def launch_gev_refine(tails, abs_stat, finite, schedule, nm_iters: int):
@@ -307,7 +282,7 @@ def launch_gev_refine(tails, abs_stat, finite, schedule, nm_iters: int):
     Returns ``[M, GEV_OUT_COLS]`` float64: the p-value (NaN unless refined),
     the status (0 keep the counting p-value, 1 refined, 2 the host decides),
     the accepted stage of each side (1-based, 0 if none) and the values the
-    likelihoods went over.  Each launch counts in ``count_launch``.
+    likelihoods went over.
     """
     if tails.device.type != "cuda":
         raise ValueError(f"unsupported device {tails.device}")
@@ -329,21 +304,15 @@ def launch_gev_refine(tails, abs_stat, finite, schedule, nm_iters: int):
     if m == 0:
         return out
     sched = np.ascontiguousarray(schedule)
-    stream = torch.cuda.current_stream(tails.device).cuda_stream
-    rc = _gev_library().gev_refine_launch(
-        tails.data_ptr(), abs_stat.data_ptr(), finite.data_ptr(),
-        out.data_ptr(), m, tail_len, int(nm_iters),
-        sched.ctypes.data_as(ctypes.c_void_p), n_stages, stream)
-    if rc != 0:
-        raise RuntimeError(f"gev_refine launch failed: cudaError {rc}")
-    count_launch(0, GEV)
+    _launch(GEV, 0, tails.device, tails.data_ptr(), abs_stat.data_ptr(),
+            finite.data_ptr(), out.data_ptr(), m, tail_len, int(nm_iters),
+            sched.ctypes.data_as(ctypes.c_void_p), n_stages)
     return out
 
 
 __all__ = ["fused_bootstrap_sums_cuda", "fused_multinomial_sums_cuda",
            "cascade_inputs", "launch_cascade", "launch_multinomial",
-           "cascade_resources", "multinomial_resources", "cascade_ptxas",
-           "launch_gev_refine", "load_gev", "gev_resources", "gev_ptxas",
+           "launch_gev_refine", "on_card", "resources", "ptxas", "KERNELS",
            "LAUNCHES", "LAUNCHES_BY_W", "WARM_LAUNCHES", "CASCADE",
            "MULTINOMIAL", "GEV", "GEV_OUT_COLS", "reset_launches",
            "count_launch"]

@@ -27,7 +27,8 @@ The registry keeps, per name, the count, total, largest and first duration
 writes the ring as a Chrome trace on the clock of ``torch.profiler``'s
 traces, and ``device_trace`` writes it beside its own trace, so the spans
 line up with the device's kernels and idle gaps.  While the profiler runs,
-each span is also a ``record_function`` range of the same name.
+each span is also a ``record_function`` range of the same name (a
+``user_annotation`` of the trace).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import contextvars
 import functools
 import itertools
 import json
+import operator
 import os
 import re
 import sys
@@ -54,10 +56,6 @@ TRACE_FILE = "trace.json"  # the Chrome trace ``device_trace`` writes
 SPANS_FILE = "spans.json"  # the spans ``device_trace`` writes beside it
 RING_SIZE = 200_000  # span records kept
 
-# ``perf_counter_ns() + _WALL_NS`` is the wall clock in ns, the clock of a
-# ``torch.profiler`` trace (``ts`` µs plus ``baseTimeNanoseconds``)
-_WALL_NS = time.time_ns() - time.perf_counter_ns()
-
 _LOCK = threading.Lock()
 _AGG: Dict[str, list] = {}  # name -> [count, total_s, max_s, first_s]
 _COUNTERS: Dict[str, int] = {}
@@ -72,6 +70,15 @@ _THREAD = threading.local()  # .id: the OS thread id, read once per thread
 def _profiler_on() -> bool:
     # ``record_function`` costs ~10 µs even with no profiler running
     return getattr(_autograd_profiler, "_is_profiler_enabled", True)
+
+
+# A span's profiler range opens and closes through the entry points under
+# ``torch.profiler.record_function``, which keep the interpreter lock:
+# ``record_function`` runs them as an operator that releases it, and a
+# thread waiting for the lock then took it, often for its whole switch
+# interval (5 ms), between the range's timestamp and the span's.
+_range_enter = torch._C._autograd._record_function_with_args_enter
+_range_exit = torch._C._autograd._record_function_with_args_exit
 
 
 def _thread_id() -> int:
@@ -127,16 +134,20 @@ class Span:
         self.thread = _thread_id()
         self._token = _CURRENT.set(self)
         if _profiler_on():
-            self._rf = torch.profiler.record_function(
-                self.name, f"request={self.request}")
-            self._rf.__enter__()
-        self.t0 = time.perf_counter_ns()
+            # the span's timestamp, then the range's (taken early in the
+            # entry), with no bytecode in between at which another thread
+            # could take the lock
+            self.t0, self._rf = map(operator.call, (
+                time.perf_counter_ns, functools.partial(
+                    _range_enter, self.name, f"request={self.request}")))
+        else:
+            self.t0 = time.perf_counter_ns()
         return self
 
     def _close(self):
         self.t1 = time.perf_counter_ns()
         if self._rf is not None:
-            self._rf.__exit__(None, None, None)
+            _range_exit(self._rf)
             self._rf = None
         _CURRENT.reset(self._token)
         self._token = None
@@ -332,13 +343,33 @@ def spans() -> list:
             for sp in list(_RING)]
 
 
-def export_spans(path: str, base_ns: int = 0, since_ns: int = 0) -> int:
+def wall_offset_ns(reads: int = 8) -> int:
+    """``time_ns() - perf_counter_ns()``: what turns a span's clock into the
+    wall clock, the clock of a ``torch.profiler`` trace (``ts`` µs plus
+    ``baseTimeNanoseconds``).  Of ``reads`` wall-clock reads, each between
+    two ``perf_counter_ns`` reads, the one with the shortest pair wins, so
+    that a read the scheduler pulled apart does not skew it."""
+    best = None
+    for _ in range(reads):
+        before = time.perf_counter_ns()
+        wall = time.time_ns()
+        after = time.perf_counter_ns()
+        if best is None or after - before < best[0]:
+            best = (after - before, wall - (before + after) // 2)
+    return best[1]
+
+
+def export_spans(path: str, base_ns: int = 0, since_ns: int = 0,
+                 offset_ns: Optional[int] = None) -> int:
     """Write the ring as a Chrome trace of ``X`` events: ``ts`` in µs
     after ``base_ns`` on the wall clock (a ``torch.profiler`` trace's
     ``baseTimeNanoseconds``), ids, parents, request ids and attributes in
     ``args``, a device span's device seconds as ``device_s``.  Only spans
-    that end after ``since_ns`` (``perf_counter_ns``) go in.  Returns the
-    number of events."""
+    that end after ``since_ns`` (``perf_counter_ns``) go in.  ``offset_ns``
+    maps the spans to the wall clock (default: ``wall_offset_ns()`` now).
+    Returns the number of events."""
+    if offset_ns is None:
+        offset_ns = wall_offset_ns()
     pid = os.getpid()
     events = []
     for sp in spans():
@@ -351,7 +382,7 @@ def export_spans(path: str, base_ns: int = 0, since_ns: int = 0) -> int:
         events.append({
             "ph": "X", "cat": "span", "name": sp["name"], "pid": pid,
             "tid": sp["thread"],
-            "ts": (sp["start_ns"] + _WALL_NS - base_ns) / 1e3,
+            "ts": (sp["start_ns"] + offset_ns - base_ns) / 1e3,
             "dur": (sp["end_ns"] - sp["start_ns"]) / 1e3,
             "args": args})
     with open(path, "w") as f:
@@ -492,7 +523,8 @@ def device_trace(logdir: Optional[str] = None, device=None):
     Yields the profile, whose ``key_averages()`` the caller may read; on
     exit writes the Chrome trace to ``logdir/TRACE_FILE`` and the spans
     that ended inside the region to ``logdir/SPANS_FILE``, on the trace's
-    clock.
+    clock (the offset between the two clocks taken as the profiler starts,
+    as the profiler takes its own).
     """
     if logdir is None:
         yield None
@@ -505,6 +537,7 @@ def device_trace(logdir: Optional[str] = None, device=None):
     config = _ExperimentalConfig(profile_all_threads=True)
     os.makedirs(logdir, exist_ok=True)
     since = time.perf_counter_ns()
+    offset = wall_offset_ns()
     with profile(activities=activities, experimental_config=config) as prof:
         yield prof
     trace = os.path.join(logdir, TRACE_FILE)
@@ -512,11 +545,11 @@ def device_trace(logdir: Optional[str] = None, device=None):
     if _PENDING:
         _resolve(block=True)
     export_spans(os.path.join(logdir, SPANS_FILE), _trace_base_ns(trace),
-                 since)
+                 since, offset)
 
 
 __all__ = ["phase", "device_phase", "wait", "request", "traced", "submit",
            "tally", "count", "counters", "resolve", "add_time", "spans",
-           "export_spans", "sync_pull", "timings", "reset_timings",
-           "steady_state", "report", "ProgressReporter", "device_trace",
+           "export_spans", "wall_offset_ns", "sync_pull", "timings",
+           "reset_timings", "steady_state", "report", "ProgressReporter", "device_trace",
            "TRACE_FILE", "SPANS_FILE", "RING_SIZE"]

@@ -20,7 +20,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-from ..ops import kernel_build
+from .. import build
 
 PIPES = (
     ("fp32", r"^(FADD|FMUL|FFMA|FMNMX|FSEL|FSET|FSETP|FCHK)"),
@@ -78,8 +78,10 @@ def main() -> int:
     parser.add_argument("libraries", nargs="*", type=Path)
     parser.add_argument("--listing", type=Path, default=None)
     args = parser.parse_args()
-    libraries = args.libraries or list(kernel_build.build().values())
-    tool = Path(kernel_build.nvcc_path()).with_name("cuobjdump")
+    kernels = [name for name, lib in build.LIBRARIES.items()
+               if lib.compiler == "nvcc"]
+    libraries = args.libraries or list(build.build(kernels).values())
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
     for lib in libraries:
         proc = subprocess.run([str(tool), "-sass", str(lib)],
                               capture_output=True, text=True)

@@ -4,9 +4,10 @@ share of them.
 On the CPU: the kernel's KS gate (two bounds per tail length) decides as
 ``kstwo.sf(D, L) > 0.05`` wherever it decides; rows on the CPU still take
 the numpy worker, bit for bit the JAX package's ``gev_refine_batch``; the
-accepted stages count the fits; the card path's bookkeeping (the counters
-``gev.kernel``, ``gev.host_rows`` and ``gev.fit_rows``, and the p-values it
-writes) on a stand-in for the launch; the kernel's cost model.  On the card
+accepted stages count the fits; the card path's bookkeeping (its launches
+in ``cuda_kernels.LAUNCHES``, the counters ``gev.host_rows`` and
+``gev.fit_rows``, and the p-values it writes) on a stand-in for the launch;
+the kernel's cost model.  On the card
 (skipped without one): the kernel against ``gev_refine_batch`` on the same
 rows, a relaunch bit for bit, ptxas without spills, and the tile loop's
 refit through the kernel.  This file imports JAX only inside the one test
@@ -23,7 +24,7 @@ import pytest
 import torch
 from scipy import stats as sstats
 
-from memento_tpu_torch.inference import gev, ht
+from memento_tpu_torch.inference import gev
 from memento_tpu_torch.ops import cuda_kernels
 from memento_tpu_torch.utils import profiling, roofline
 
@@ -120,8 +121,8 @@ CPU_CASES = {
 @pytest.mark.parametrize("resampling", ["bootstrap", "permutation"])
 @pytest.mark.parametrize("case", sorted(CPU_CASES))
 def test_cpu_rows_take_the_numpy_worker_bit_for_bit(case, resampling):
-    """``_DeferredGEV`` on CPU rows: the worker's numpy refit, equal bit for
-    bit to the JAX package's ``gev_refine_batch``; no kernel counters."""
+    """``DeferredGEV`` on CPU rows: the worker's numpy refit, equal bit for
+    bit to the JAX package's ``gev_refine_batch``; no kernel launch."""
     j_gev = pytest.importorskip("memento_tpu.inference.gev")
     rng = np.random.default_rng(sorted(CPU_CASES).index(case))
     rows = _rows(rng, **CPU_CASES[case])
@@ -131,7 +132,8 @@ def test_cpu_rows_take_the_numpy_worker_bit_for_bit(case, resampling):
     gi, gk = np.arange(m) + 2, np.arange(m) % 2
     out[gi, gk] = fallbacks
     profiling.reset_timings()
-    worker = ht._DeferredGEV("t")
+    cuda_kernels.reset_launches()
+    worker = gev.DeferredGEV("t")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
         worker.submit(torch.as_tensor(rows), gi, gk, out, resampling)
@@ -141,7 +143,8 @@ def test_cpu_rows_take_the_numpy_worker_bit_for_bit(case, resampling):
     assert np.array_equal(out[gi, gk], want)
     found = profiling.counters()
     assert found["t.gev.rows"] == m and found["t.gev.fit_rows"] >= m
-    assert "t.gev.kernel" not in found and "t.gev.host_rows" not in found
+    assert cuda_kernels.LAUNCHES[cuda_kernels.GEV] == 0
+    assert "t.gev.host_rows" not in found
     names = {name for name in profiling.timings()}
     assert {"t.gev.refine", "t.gev.refine.wait", "t.gev.fit"} <= names
     assert "t.gev.host" not in names
@@ -190,23 +193,24 @@ def _stand_in(rows, resampling):
     finite = torch.isfinite(rows).all(1).numpy()
     out[~finite, :4] = (np.nan, gev.HOST, 0, 0)
     out[:, 4] = 1000.0
+    cuda_kernels.count_launch(0, cuda_kernels.GEV)  # as the launch counts
     return torch.as_tensor(out)
 
 
 def test_card_path_counters_add_up(monkeypatch):
-    """Two tiles through the card's path: one launch each (``gev.kernel``),
+    """Two tiles through the card's path: one launch each (``LAUNCHES``),
     the refined rows' p-values written at ``finish``, the others' counting
     p-values kept, the host's rows (``gev.host_rows``) refit by numpy, and
     ``gev.fit_rows`` the card's stages plus the host's fits."""
-    monkeypatch.setattr(ht._DeferredGEV, "_on_card", staticmethod(
-        lambda rows: True))
+    monkeypatch.setattr(cuda_kernels, "on_card", lambda device: True)
     monkeypatch.setattr(gev, "launch_refine", _stand_in)
     rng = np.random.default_rng(4)
     tiles = [_rows(rng, 18, 700, "gev", non_finite=2),
              _rows(rng, 13, 700, "normal", degenerate=1)]
     out = np.full((40, 3), np.nan)
     profiling.reset_timings()
-    worker = ht._DeferredGEV("t")
+    cuda_kernels.reset_launches()
+    worker = gev.DeferredGEV("t")
     spots, fallbacks = [], []
     at = 0
     for rows in tiles:
@@ -220,6 +224,7 @@ def test_card_path_counters_add_up(monkeypatch):
         worker.submit(torch.as_tensor(rows), gi, gk, out, "bootstrap")
     assert np.array_equal(out[spots[0]], fallbacks[0])  # nothing before finish
     worker.finish()
+    assert cuda_kernels.LAUNCHES[cuda_kernels.GEV] == len(tiles)
 
     host_rows, host_fits, card_fits = 0, 0, 0
     for rows, (gi, gk), fb in zip(tiles, spots, fallbacks):
@@ -240,7 +245,6 @@ def test_card_path_counters_add_up(monkeypatch):
         host_rows += int(host.sum())
         card_fits += gev.stage_fits(want[~host, 2:4].astype(np.int64))
     found = profiling.counters()
-    assert found["t.gev.kernel"] == 2
     assert found["t.gev.rows"] == sum(len(s[0]) for s in spots)
     assert found["t.gev.host_rows"] == host_rows > 0
     assert found["t.gev.fit_rows"] == card_fits + host_fits
@@ -333,10 +337,10 @@ def test_kernel_relaunch_is_bit_for_bit_on_card(cuda_device):
 
 
 def test_kernel_builds_without_spills_on_card(cuda_device):
-    use = cuda_kernels.gev_ptxas()
+    use = cuda_kernels.ptxas(cuda_kernels.GEV)[0]
     assert use["registers"] is not None
     assert not use["spill_store_bytes"] and not use["spill_load_bytes"]
-    assert cuda_kernels.gev_resources()["blocks_per_sm"] >= 1
+    assert cuda_kernels.resources(cuda_kernels.GEV)["blocks_per_sm"] >= 1
 
 
 def test_kernel_refuses_bad_inputs_on_card(cuda_device):
@@ -355,7 +359,7 @@ def test_kernel_refuses_bad_inputs_on_card(cuda_device):
 
 
 def test_tile_loop_refits_through_the_kernel_on_card(cuda_device):
-    """``_DeferredGEV`` on CUDA rows: one launch a tile, no worker copy,
+    """``DeferredGEV`` on CUDA rows: one launch a tile, no worker copy,
     the p-values of ``settle`` and the counters that add up."""
     rng = np.random.default_rng(9)
     rows = _rows(rng, 200, 1000, "gev", degenerate=1, non_finite=2)
@@ -364,13 +368,13 @@ def test_tile_loop_refits_through_the_kernel_on_card(cuda_device):
     out[gi, gk] = 1.0 / 1001
     cuda_kernels.reset_launches()
     profiling.reset_timings()
-    worker = ht._DeferredGEV("t")
+    worker = gev.DeferredGEV("t")
     worker.submit(torch.as_tensor(rows, device=cuda_device), gi, gk, out,
                   "bootstrap")
     worker.finish()
     assert cuda_kernels.LAUNCHES[cuda_kernels.GEV] == 1
     found = profiling.counters()
-    assert found["t.gev.kernel"] == 1 and found["t.gev.host_rows"] >= 2
+    assert found["t.gev.host_rows"] >= 2
     names = set(profiling.timings())
     assert "t.gev.refine.wait" not in names and "t.gev.fit" in names
     stats, nulls = gev.split_rows(rows, "bootstrap")

@@ -18,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from memento_tpu_torch.ops import cuda_kernels, kernel_build, sampling
+from memento_tpu_torch import build
+from memento_tpu_torch.ops import bootstrap, cuda_kernels, sampling
 from memento_tpu_torch.utils import sass_count
 
 # tier-1 runs several pytest workers at once: one torch thread each keeps
@@ -60,14 +61,54 @@ def _assert_same_law(a, b, tol=0.15):
 
 
 def test_wrapper_takes_plain_version_for_cpu_tensors(rng):
+    """On CPU tensors the wrapper is the program's CPU path: the plain
+    cascade, bit for bit what ``bootstrap._moment_sums`` gives for both
+    ``cascade`` and ``cascade_cuda``; no launch counted."""
     counts = torch.tensor(_tile(rng, t=4, u=16, n=500))
     w = torch.rand(4, 16, 2, generator=torch.Generator().manual_seed(0))
+    n_rows = torch.full((4,), 500.0)
     cuda_kernels.reset_launches()
-    got = cuda_kernels.fused_bootstrap_sums_cuda(counts, w, 500.0, 33, 8)
-    want = sampling.fused_bootstrap_sums(counts, w, 500.0, 33, 8)
+    got = cuda_kernels.fused_bootstrap_sums_cuda(counts, w, n_rows, 33, 8)
+    want = sampling.fused_bootstrap_sums(counts, w, n_rows, 33, 8)
     assert torch.equal(got, want)
+    for sampler in ("cascade", "cascade_cuda"):
+        assert torch.equal(got / n_rows[:, None, None], bootstrap._moment_sums(
+            counts, w, n_rows, 33, 8, sampler))
     assert cuda_kernels.LAUNCHES["cascade_bootstrap"] == 0
     assert not any(cuda_kernels.LAUNCHES_BY_W.values())
+
+
+# what ``ptxas -v`` writes for two instances of a templated kernel
+_PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z17cascade_bootstrapILi2EEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z17cascade_bootstrapILi2EEvPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z17cascade_bootstrapILi5EEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z17cascade_bootstrapILi5EEvPKf
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, 400 bytes cmem[0]
+"""
+
+
+@pytest.mark.parametrize("kernel", ["templated", "single"])
+def test_ptxas_keys_each_instance_by_its_w(monkeypatch, kernel):
+    """``cuda_kernels.ptxas`` reads the build's ptxas report: one entry per
+    instance, keyed by its W, and 0 for a kernel not templated on W."""
+    log = _PTXAS_LOG if kernel == "templated" else \
+        _PTXAS_LOG.split("ptxas info    : Compiling entry function '_Z17"
+                         "cascade_bootstrapILi5E")[0].replace(
+            "_Z17cascade_bootstrapILi2EEvPKf", "_Z10gev_refinePKdS0_")
+    built = []
+    monkeypatch.setattr(build, "build", built.append)
+    monkeypatch.setitem(build.BUILD_LOG, "k", {"log": log})
+    small = {"registers": 40, "spill_store_bytes": 0, "spill_load_bytes": 0}
+    want = {2: small, 5: {"registers": 255, "spill_store_bytes": 4,
+                          "spill_load_bytes": 12}} \
+        if kernel == "templated" else {0: small}
+    assert cuda_kernels.ptxas("k") == want
+    assert built == [["k"]]
 
 
 def test_wrapper_refuses_other_devices():
@@ -291,13 +332,13 @@ def poison_shared(tmp_path_factory):
     pattern (one block per SM takes all of it; eight blocks per SM go)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel runs only on the card)")
-    build = tmp_path_factory.mktemp("poison")
-    (build / "poison.cu").write_text(_POISON_SOURCE)
-    flags = [f for f in kernel_build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    subprocess.run([kernel_build.nvcc_path(), *flags, "-o",
-                    str(build / "libpoison.so"), str(build / "poison.cu")],
+    workdir = tmp_path_factory.mktemp("poison")
+    (workdir / "poison.cu").write_text(_POISON_SOURCE)
+    flags = [f for f in build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    subprocess.run([build.nvcc_path(), *flags, "-o",
+                    str(workdir / "libpoison.so"), str(workdir / "poison.cu")],
                    check=True, capture_output=True, text=True)
-    fn = ctypes.CDLL(str(build / "libpoison.so")).poison_shared
+    fn = ctypes.CDLL(str(workdir / "libpoison.so")).poison_shared
     fn.argtypes = [ctypes.c_int, ctypes.c_uint]
     fn.restype = ctypes.c_int
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count

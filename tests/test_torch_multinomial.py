@@ -26,7 +26,6 @@ from memento_tpu_torch.device import generator
 from memento_tpu_torch.drivers._data import multinomial_counts
 from memento_tpu_torch.inference import ht
 from memento_tpu_torch.ops import bootstrap, cuda_kernels, estimators
-from memento_tpu_torch.ops import kernel_build
 from memento_tpu_torch.ops import sampling
 from memento_tpu_torch.utils import profiling
 
@@ -170,14 +169,21 @@ def test_philox_sums_match_the_chain_in_distribution(rng):
 
 
 def test_wrapper_takes_plain_version_for_cpu_tensors(rng):
+    """On CPU tensors the wrapper is the program's CPU path, the
+    torch.binomial chain: bit for bit what ``bootstrap._moment_sums`` gives
+    for ``multinomial``; no launch counted."""
     counts = _gene_tile(rng, 4, 300)
     weights = rng.random((*counts.shape, 2)).astype(np.float32)
     cuda_kernels.reset_launches()
     got = _sums(cuda_kernels.fused_multinomial_sums_cuda, counts, weights,
                 64, 8)
-    want = _sums(sampling.fused_multinomial_sums_philox, counts, weights,
-                 64, 8)
+    c, w = torch.as_tensor(counts), torch.as_tensor(weights)
+    n = c.sum(1)
+    want = sampling.fused_bootstrap_sums(c, w, n, 64, 8,
+                                         sampler="multinomial")
     assert torch.equal(got, want)
+    assert torch.equal(got / n[:, None, None], bootstrap._moment_sums(
+        c, w, n, 64, 8, "multinomial"))
     assert cuda_kernels.LAUNCHES == {cuda_kernels.CASCADE: 0,
                                      cuda_kernels.MULTINOMIAL: 0,
                                      cuda_kernels.GEV: 0}
@@ -250,6 +256,7 @@ def test_cpu_multinomial_is_the_chain_bit_for_bit(case):
     replicates, and one ``multinomial.chain`` count per group and chunk."""
     rng = np.random.default_rng(5)
     profiling.reset_timings()
+    cuda_kernels.reset_launches()
     if case.startswith("sums"):
         w_dim = 2 if case == "sums_1d" else 5
         counts = torch.as_tensor(_tile_1d(rng)[1])  # [R, T, U]
@@ -274,9 +281,8 @@ def test_cpu_multinomial_is_the_chain_bit_for_bit(case):
         out = tuple(res[k] for k in sorted(res))
         calls = 3 * 3
     assert _digest(*out) == PARENT_DIGESTS[case]
-    found = profiling.counters()
-    assert found.get("multinomial.chain") == calls
-    assert "multinomial.kernel" not in found
+    assert profiling.counters().get("multinomial.chain") == calls
+    assert cuda_kernels.LAUNCHES[cuda_kernels.MULTINOMIAL] == 0
 
 
 # --- the kernel on the card -----------------------------------------------
@@ -377,11 +383,11 @@ def test_kernel_matches_the_chain_in_distribution_on_card(rng, cuda_device,
     cuda_kernels.reset_launches()
     k = bootstrap._moment_sums(c, w, n, 4000, 11, "multinomial")
     assert cuda_kernels.LAUNCHES[cuda_kernels.MULTINOMIAL] == 1
-    assert profiling.counters() == {"multinomial.kernel": 1}
+    assert profiling.counters() == {}
     b = sampling.fused_bootstrap_sums(c, w, n, 4000, 11,
                                       sampler="multinomial")
-    assert profiling.counters() == {"multinomial.kernel": 1,
-                                    "multinomial.chain": 1}
+    assert cuda_kernels.LAUNCHES[cuda_kernels.MULTINOMIAL] == 1
+    assert profiling.counters() == {"multinomial.chain": 1}
     # both as _moment_sums gives them: sums over each row's trial count
     k, b = k.cpu().numpy(), (b / n[:, None, None]).cpu().numpy()
     sd = b.std(-1)
@@ -406,11 +412,10 @@ def test_kernel_checks_its_inputs_on_card(cuda_device):
 
 
 def test_kernel_builds_without_spills_on_card(cuda_device):
-    kernel_build.build([cuda_kernels.MULTINOMIAL])
-    usage = kernel_build.ptxas_usage(
-        kernel_build.BUILD_LOG[cuda_kernels.MULTINOMIAL])
-    assert len(usage) == 3, usage  # W = 1, 2, 5
+    usage = cuda_kernels.ptxas(cuda_kernels.MULTINOMIAL)
+    assert sorted(usage) == list(cuda_kernels.SUPPORTED_W), usage
     print("\nptxas:", usage)
     for w_dim in cuda_kernels.SUPPORTED_W:
-        print(f"W={w_dim}:", cuda_kernels.multinomial_resources(w_dim))
+        print(f"W={w_dim}:", cuda_kernels.resources(cuda_kernels.MULTINOMIAL,
+                                                    w_dim))
     assert all(u["spill_store_bytes"] == 0 for u in usage.values()), usage

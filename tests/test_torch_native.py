@@ -33,7 +33,7 @@ from memento_tpu.ops import size_factor as j_sf
 import memento_tpu_torch as mtt
 from memento_tpu_torch import api as t_api
 from memento_tpu_torch import native as t_native
-from memento_tpu_torch.native import _build
+from memento_tpu_torch import build
 from memento_tpu_torch.ops import compress as t_compress
 from memento_tpu_torch.ops import corr as t_corr
 from memento_tpu_torch.ops import estimators as t_est
@@ -438,40 +438,129 @@ def test_failed_build_raises(rng, monkeypatch):
     message, through the packers too: never a quiet numpy result."""
     X = _matrix(rng, g=6)
     approx = _approx(rng, X.shape[0])
-    monkeypatch.setattr(_build, "_LIB", None)
-    monkeypatch.setattr(_build, "CXX", "no-such-compiler-for-memento")
+    native = build.LIBRARIES["native"]
+    monkeypatch.delitem(build._LOADED, "native", raising=False)
+    monkeypatch.setitem(build.LIBRARIES, "native", native._replace(
+        compiler="no-such-compiler-for-memento"))
     with pytest.raises(RuntimeError, match="no-such-compiler-for-memento"):
         t_compress.compress_group(X, approx)
-    monkeypatch.setattr(_build, "CXX", "g++")
-    monkeypatch.setattr(_build, "CXX_FLAGS",
-                        _build.CXX_FLAGS + ["-fno-such-memento-flag"])
+    monkeypatch.setitem(build.LIBRARIES, "native", native._replace(
+        flags=native.flags + ("-fno-such-memento-flag",)))
     with pytest.raises(RuntimeError, match="no-such-memento-flag"):
         t_compress.compress_pairs(X, approx, [0], [1])
     with pytest.raises(RuntimeError, match="native build failed"):
         t_est.suffstats_sparse(X, np.ones(X.shape[0]))
-    assert not list(_build.BUILD_DIR.glob("libnative-*.tmp"))
+    assert not list(build.BUILD_DIR.glob("libnative-*.tmp"))
 
 
-def test_library_is_keyed_on_sources_flags_compiler_and_cpu(monkeypatch):
-    version = _build._compiler_version()
-    path = _build.library_path(version)
+def test_library_is_keyed_on_sources_flags_compiler_and_cpu(monkeypatch,
+                                                          tmp_path):
+    path = build.library_path("native")
     assert path.parent == REPO / "memento_tpu_torch" / "_build"
     assert path.name.startswith("libnative-") and path.suffix == ".so"
-    assert _build.library_path(version + "x") != path
-    monkeypatch.setattr(_build, "CXX_FLAGS", _build.CXX_FLAGS[:-1])
-    assert _build.library_path(version) != path
+    native = build.LIBRARIES["native"]
+    monkeypatch.setitem(build.LIBRARIES, "native",
+                        native._replace(flags=native.flags[:-1]))
+    assert build.library_path("native") != path
+    edited = tmp_path / "compress.cpp"
+    edited.write_bytes((build.PACKAGE_DIR / native.sources[0]).read_bytes()
+                       + b"\n")
+    monkeypatch.setitem(build.LIBRARIES, "native", native._replace(
+        sources=(str(edited),) + native.sources[1:]))
+    assert build.library_path("native") != path
+    monkeypatch.setitem(build.LIBRARIES, "native", native)
+    assert build.library_path("native") == path
+    version = build.compiler_version("g++")
+    monkeypatch.setattr(build, "compiler_version", lambda c: version + "x")
+    assert build.library_path("native") != path
     monkeypatch.undo()
-    monkeypatch.setattr(_build, "_cpu_fingerprint", lambda: b"another cpu")
-    assert _build.library_path(version) != path
+    monkeypatch.setattr(build, "_cpu_fingerprint", lambda: b"another cpu")
+    assert build.library_path("native") != path
+
+
+def test_kernel_library_is_keyed_on_source_flags_and_nvcc(monkeypatch,
+                                                         tmp_path):
+    """A CUDA kernel's library name follows its source, its flags and
+    ``nvcc --version`` (stubbed here: no nvcc is needed to name it), and
+    not the host's CPU."""
+    nvcc = ["Cuda compilation tools, release 12.8, V12.8.93\n"]
+    monkeypatch.setattr(build, "compiler_version", lambda c: {
+        "nvcc": nvcc[0]}[c])
+    path = build.library_path("gev_refine")
+    assert path.name.startswith("libgev_refine-") and path.suffix == ".so"
+    assert path != build.library_path("cascade_bootstrap")
+    monkeypatch.setattr(build, "_cpu_fingerprint", lambda: b"another cpu")
+    assert build.library_path("gev_refine") == path
+    nvcc[0] = "Cuda compilation tools, release 12.9, V12.9.41\n"
+    assert build.library_path("gev_refine") != path
+    nvcc.pop()
+    nvcc.append("Cuda compilation tools, release 12.8, V12.8.93\n")
+    lib = build.LIBRARIES["gev_refine"]
+    monkeypatch.setitem(build.LIBRARIES, "gev_refine",
+                        lib._replace(flags=lib.flags[:-1]))
+    assert build.library_path("gev_refine") != path
+    edited = tmp_path / "gev_refine.cu"
+    edited.write_bytes((build.PACKAGE_DIR / lib.sources[0]).read_bytes()
+                       + b"\n")
+    monkeypatch.setitem(build.LIBRARIES, "gev_refine",
+                        lib._replace(sources=(str(edited),)))
+    assert build.library_path("gev_refine") != path
+    monkeypatch.setitem(build.LIBRARIES, "gev_refine", lib)
+    assert build.library_path("gev_refine") == path
 
 
 CONCURRENT_BUILD = textwrap.dedent("""
     import sys
     from pathlib import Path
-    from memento_tpu_torch.native import _build
-    _build.BUILD_DIR = Path(sys.argv[1])
-    print(_build.load()._name)
+    from memento_tpu_torch import build
+    build.BUILD_DIR = Path(sys.argv[1])
+    print(build.load("native")._name)
 """)
+
+# a compiler for the concurrency test: slow, counts its compiles
+STUB_COMPILER = textwrap.dedent("""\
+    #!/bin/sh
+    if [ "$1" = "--version" ]; then echo "stub compiler 1.0"; exit 0; fi
+    echo compiled >> "$(dirname "$0")/compiles"
+    sleep 1
+    out=""; while [ $# -gt 0 ]; do
+      if [ "$1" = "-o" ]; then out="$2"; shift; fi; shift; done
+    echo library > "$out"
+""")
+
+STUB_BUILD = textwrap.dedent("""
+    import sys
+    from pathlib import Path
+    from memento_tpu_torch import build
+    build.BUILD_DIR = Path(sys.argv[1]) / "_build"
+    build.LIBRARIES["stub"] = build.Library(
+        sys.argv[1] + "/cc", (sys.argv[1] + "/stub.cu",), ("-O3",))
+    print(build.build(["stub"])["stub"])
+""")
+
+
+def test_concurrent_builds_of_any_compiler_make_one_library(tmp_path):
+    """Two processes building one library at once (a stand-in compiler,
+    as for a CUDA kernel's): one compiles under the library's flock, both
+    name the same library, and no ``*.tmp`` is left."""
+    cc = tmp_path / "cc"
+    cc.write_text(STUB_COMPILER)
+    cc.chmod(0o755)
+    (tmp_path / "stub.cu").write_text("// a kernel\n")
+    procs = [subprocess.Popen([sys.executable, "-c", STUB_BUILD,
+                               str(tmp_path)], cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(2)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [e for _, e in outs]
+    names = {o.strip() for o, _ in outs}
+    assert len(names) == 1
+    built = tmp_path / "_build"
+    assert [p.name for p in built.glob("*.so")] == \
+        [pathlib.Path(names.pop()).name]
+    assert not list(built.glob("*.tmp"))
+    assert (tmp_path / "compiles").read_text().count("compiled") == 1
+    assert (built / "libstub.lock").exists()
 
 
 def test_concurrent_builds_make_one_library(tmp_path):
@@ -535,7 +624,7 @@ ISOLATED = textwrap.dedent("""
         sys.modules[name] = None  # any import of these now raises
     import numpy as np
     import scipy.sparse as sparse
-    from memento_tpu_torch import native
+    from memento_tpu_torch import build, native
     from memento_tpu_torch.ops import compress
 
     rng = np.random.default_rng(5)
@@ -562,7 +651,7 @@ ISOLATED = textwrap.dedent("""
     assert not loaded, loaded
     maps = open("/proc/self/maps").read()
     assert "_native.so" not in maps
-    assert native._build.load()._name in maps
+    assert build.load("native")._name in maps
     print("NATIVE_ISOLATED_OK")
 """)
 

@@ -12,6 +12,7 @@ recorder holds.  An empty request returns empty results.
 
 import collections
 import json
+import threading
 
 import numpy as np
 import pytest
@@ -211,6 +212,49 @@ def test_exported_spans_line_up_with_the_profiler_trace(tmp_path):
         assert len(theirs) == len(starts), key
         for a, b in zip(sorted(starts), theirs):
             assert abs(a - b) < 2000.0, key  # µs, the same clock and base
+
+
+def _starts(logdir):
+    """(span start, its profiler range's start) in µs, per exported span."""
+    with open(logdir / profiling.TRACE_FILE) as f:
+        trace = json.load(f)
+    with open(logdir / profiling.SPANS_FILE) as f:
+        spans = json.load(f)
+    ranges = collections.defaultdict(list)
+    for e in trace["traceEvents"]:
+        if e.get("cat") == "user_annotation":
+            ranges[(e["name"], e["tid"])].append(e["ts"])
+    mine = collections.defaultdict(list)
+    for e in spans["traceEvents"]:
+        mine[(e["name"], e["tid"])].append(e["ts"])
+    return [(a, b) for key, starts in mine.items()
+            for a, b in zip(sorted(starts), sorted(ranges[key]))]
+
+
+def test_spans_line_up_while_another_thread_wants_the_lock(tmp_path):
+    """A thread that runs Python the whole time takes the interpreter lock
+    whenever a span lets it go; a span's start and its range's start are
+    read with no switch between them, so they still agree."""
+    stop = threading.Event()
+
+    def spin():
+        while not stop.is_set():
+            pass
+
+    spinner = threading.Thread(target=spin)
+    logdir = tmp_path / "trace"
+    with profiling.device_trace(str(logdir), device="cpu"):
+        spinner.start()
+        try:
+            for i in range(40):
+                with profiling.phase("contended", i=i):
+                    sum(range(2000))
+        finally:
+            stop.set()
+            spinner.join()
+    pairs = _starts(logdir)
+    assert len(pairs) == 40
+    assert max(abs(a - b) for a, b in pairs) < 2000.0  # µs
 
 
 def test_ring_keeps_its_bound(monkeypatch):
